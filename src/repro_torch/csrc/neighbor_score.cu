@@ -1,0 +1,79 @@
+// Candidate-neighbor scoring for the fleet shape search (paper §3.3).
+//
+// Replaces the TPU kernel `neighbor_score_batch` (body `_score_kernel`)
+// in src/repro/kernels/neighbor_score/neighbor_score.py.
+//
+// For camera b and grid cell c:
+//   score[b, c] = sum_o w * d_center[c, o] / max(|cell_c - centroid_o|,
+//                 1e-6) / sum_o w,   w = overlap[c, o] * member_has[b, o]
+// and 1.0 where sum_o w == 0.
+//
+// What bounds it on an H100: launch latency. At the main path's shapes
+// (B = 64 cameras, N = 25 cells) one call reads ~13 KB and does ~0.4
+// MFLOP — nanoseconds of bandwidth or arithmetic against a launch of a
+// few microseconds — and the shape loops call it dozens of times per
+// controller step. The design therefore keeps each call to ONE launch
+// with no padding or masking passes around it (the TPU version padded to
+// 128 lanes): one block per camera, one thread per cell, the camera's
+// [N] strips staged in shared memory and the static [N, N] geometry read
+// from L2. The sum over members runs in index order. Taking the launches
+// themselves away (a CUDA graph over the shape loop) is later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxCells = 128;
+
+__global__ void neighbor_score_kernel(
+    const float* __restrict__ member_has, const float* __restrict__ cent_x,
+    const float* __restrict__ cent_y, const float* __restrict__ d_center,
+    const float* __restrict__ overlap, const float* __restrict__ cell_x,
+    const float* __restrict__ cell_y, float* __restrict__ out, int n) {
+  __shared__ float s_mh[kMaxCells];
+  __shared__ float s_cx[kMaxCells];
+  __shared__ float s_cy[kMaxCells];
+  const int b = blockIdx.x;
+  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+    s_mh[o] = member_has[b * n + o];
+    s_cx[o] = cent_x[b * n + o];
+    s_cy[o] = cent_y[b * n + o];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const float gx = cell_x[c];
+    const float gy = cell_y[c];
+    float total = 0.0f;
+    float total_w = 0.0f;
+    for (int o = 0; o < n; ++o) {
+      const float w = overlap[c * n + o] * s_mh[o];
+      const float dx = gx - s_cx[o];
+      const float dy = gy - s_cy[o];
+      const float d_box = sqrtf(dx * dx + dy * dy);
+      const float ratio = d_center[c * n + o] / fmaxf(d_box, 1e-6f);
+      total += w * ratio;
+      total_w += w;
+    }
+    out[b * n + c] =
+        total_w > 0.0f ? total / fmaxf(total_w, 1e-9f) : 1.0f;
+  }
+}
+
+}  // namespace
+
+REPRO_EXTERN int neighbor_score_launch(
+    const float* member_has, const float* cent_x, const float* cent_y,
+    const float* d_center, const float* overlap, const float* cell_x,
+    const float* cell_y, float* out, int batch, int n_cells,
+    void* stream) {
+  if (n_cells > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const int threads = ((n_cells + 31) / 32) * 32;
+  neighbor_score_kernel<<<batch, threads, 0, as_stream(stream)>>>(
+      member_has, cent_x, cent_y, d_center, overlap, cell_x, cell_y, out,
+      n_cells);
+  return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXTERN const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

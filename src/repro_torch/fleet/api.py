@@ -1,0 +1,307 @@
+"""Fleet experiment API: one declarative entry for every provider.
+
+  * the provider registry — string-keyed factories (`scene`, `detector`)
+    with one uniform signature;
+  * `FleetRunSpec` — a JSON-round-trippable description of a fleet
+    experiment, field for field the reference package's, so one spec
+    JSON names the same run in both packages;
+  * `run_fleet(spec, device=None) -> FleetResult` — build the provider,
+    run one warm-up step (kernel build and load included, timed as
+    `compile_s`), then the episode (timed as `steady_s`).
+
+    >>> spec = FleetRunSpec(provider="detector", n_cameras=4, n_steps=8)
+    >>> result = run_fleet(spec)           # on the CUDA card
+    >>> result.accuracy, result.frames_sent[-1]
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`;
+without a card they raise rather than fall back to the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import DEFAULT_GRID, OrientationGrid, Query, Workload
+from repro_torch.core.tradeoff import BudgetConfig
+from repro_torch.fleet.runner import (
+    episode_step,
+    make_detector_provider,
+    make_scene_provider,
+    run_fleet_episode,
+)
+from repro_torch.fleet.state import (
+    FleetConfig,
+    FleetState,
+    FleetStatics,
+    WorkloadSpec,
+    fleet_config,
+    fleet_statics,
+    workload_spec,
+)
+from repro_torch.fleet.step import FleetStepOut
+
+# the serving launcher's default 4-query workload, as (model, object,
+# task) triples
+DEFAULT_QUERIES = (
+    ("yolov4", "person", "count"),
+    ("ssd", "car", "detect"),
+    ("frcnn", "person", "binary"),
+    ("tiny-yolov4", "person", "agg_count"),
+)
+
+
+# ---------------------------------------------------------------------------
+# provider registry
+# ---------------------------------------------------------------------------
+
+# factory signature: (grid, workload, cfg, *, n_cameras, n_steps, seed,
+# device, **kwargs) -> (provider, FleetState)
+ProviderFactory = Callable[..., tuple]
+
+_PROVIDERS: dict[str, ProviderFactory] = {}
+
+
+def register_provider(name: str, factory: ProviderFactory) -> None:
+    """Register an observation-provider factory under a spec name."""
+    _PROVIDERS[name] = factory
+
+
+def provider_factory(name: str) -> ProviderFactory:
+    if name not in _PROVIDERS:
+        raise KeyError(
+            f"unknown observation provider {name!r}; available: "
+            f"{', '.join(sorted(_PROVIDERS))}")
+    return _PROVIDERS[name]
+
+
+register_provider("scene", make_scene_provider)
+register_provider("detector", make_detector_provider)
+
+
+# ---------------------------------------------------------------------------
+# declarative run specification
+# ---------------------------------------------------------------------------
+
+def _jsonable(x):
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    raise TypeError(f"{type(x).__name__} is not JSON-serializable")
+
+
+def _off(x) -> bool:
+    """The spec's rule for optional features: None/False, or a dict
+    with enabled=False, mean off."""
+    return (x is None or x is False
+            or (isinstance(x, dict) and not x.get("enabled", True)))
+
+
+@dataclass(frozen=True)
+class FleetRunSpec:
+    """Everything that defines one fleet experiment, declaratively; the
+    same fields and JSON as the reference package's spec."""
+    provider: str = "scene"
+    n_cameras: int = 4
+    n_steps: int | None = 32
+    seed: int = 0
+    workload: tuple = DEFAULT_QUERIES   # ((model, obj, task), ...)
+    budget: dict = field(default_factory=dict)  # BudgetConfig overrides
+    grid: dict = field(default_factory=dict)    # OrientationGrid overrides
+    provider_kwargs: dict = field(default_factory=dict)
+    # mesh placement of the fleet axis, as the reference's ShardSpec
+    # fields (not ported: only None or kind "none" runs)
+    shard: dict | None = None
+    # how many of the N*Z windows each camera renders + scores per step
+    # (detector provider; None = exhaustive)
+    shortlist_k: int | None = None
+    metrics: Any = None     # in-episode telemetry (not ported: must be off)
+    distill: Any = None     # in-episode distillation (not ported: off)
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "workload",
+            tuple(tuple(q) for q in self.workload))
+        for name in ("metrics", "distill"):
+            if _off(getattr(self, name)):
+                object.__setattr__(self, name, None)
+
+    # -- object views ---------------------------------------------------
+    def grid_obj(self) -> OrientationGrid:
+        return OrientationGrid(**self.grid) if self.grid else DEFAULT_GRID
+
+    def budget_obj(self) -> BudgetConfig:
+        return BudgetConfig(**self.budget)
+
+    def workload_obj(self) -> Workload:
+        return Workload(tuple(Query(*q) for q in self.workload))
+
+    # -- JSON round trip ------------------------------------------------
+    def to_json(self, **dumps_kwargs) -> str:
+        d = dataclasses.asdict(self)
+        return json.dumps(d, default=_jsonable, **dumps_kwargs)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FleetRunSpec":
+        return cls(**json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """`device` or the CUDA card; raises when no card is present and the
+    caller did not ask for the CPU (never falls back)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+@dataclass
+class PreparedFleetRun:
+    """A spec resolved to runnable pieces: provider built, configs
+    derived, tensors on `device`. `episode()` runs the step loop."""
+    spec: FleetRunSpec
+    cfg: FleetConfig
+    wl: WorkloadSpec
+    statics: FleetStatics
+    state: FleetState
+    provider: Any
+    device: torch.device
+    build_s: float
+
+    def episode(self, provider=None, state=None):
+        return run_fleet_episode(
+            self.cfg, self.wl, self.statics,
+            self.state if state is None else state,
+            self.provider if provider is None else provider)
+
+
+def prepare_fleet_run(spec: FleetRunSpec, *, device=None
+                      ) -> PreparedFleetRun:
+    """Resolve a FleetRunSpec: registry lookup and provider
+    construction — everything up to (but not including) the episode."""
+    for name in ("metrics", "distill"):
+        if getattr(spec, name) is not None:
+            raise NotImplementedError(
+                f"FleetRunSpec.{name} is not ported to this package")
+    if spec.shard is not None and spec.shard.get("kind") != "none":
+        raise NotImplementedError("sharded fleets are not ported to this "
+                                  "package")
+    dev = resolve_device(device)
+    grid = spec.grid_obj()
+    workload = spec.workload_obj()
+    cfg = fleet_config(grid, spec.budget_obj())
+    factory = provider_factory(spec.provider)
+    kwargs = dict(spec.provider_kwargs)
+    if spec.shortlist_k is not None:
+        kwargs["shortlist_k"] = spec.shortlist_k
+    t0 = time.perf_counter()
+    provider, state = factory(
+        grid, workload, cfg, n_cameras=spec.n_cameras,
+        n_steps=spec.n_steps, seed=spec.seed, device=dev, **kwargs)
+    build_s = time.perf_counter() - t0
+    return PreparedFleetRun(
+        spec=spec, cfg=cfg, wl=workload_spec(workload),
+        statics=fleet_statics(grid, dev), state=state, provider=provider,
+        device=dev, build_s=build_s)
+
+
+@dataclass
+class FleetResult:
+    """Typed result of one fleet episode: host-side summaries
+    (JSON-round-trippable) plus, from `run_fleet`, the final `state` and
+    the per-step `out` (FleetStepOut, leaves [E, F, ...])."""
+    spec: FleetRunSpec
+    n_cameras: int
+    n_steps: int
+    accuracy: float             # mean oracle grade of chosen orientations
+    acc_per_step: tuple         # [E] fleet-mean oracle accuracy
+    chosen: tuple               # [E][F] chosen orientation cell ids
+    frames_sent: tuple          # [E] frames shipped fleet-wide
+    mean_shape: float           # mean explored-shape size
+    timings: dict               # build_s, compile_s, steady_s, episode_s
+    state: FleetState | None = None
+    out: FleetStepOut | None = None
+
+    @property
+    def camera_steps_per_s(self) -> float:
+        t = self.timings.get("steady_s", self.timings.get("episode_s", 0.0))
+        return self.n_cameras * self.n_steps / max(t, 1e-9)
+
+    def to_json(self, **dumps_kwargs) -> str:
+        d = dataclasses.asdict(
+            dataclasses.replace(self, state=None, out=None))
+        d.pop("state"), d.pop("out")
+        d["spec"] = json.loads(self.spec.to_json())
+        return json.dumps(d, default=_jsonable, **dumps_kwargs)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FleetResult":
+        d = json.loads(s)
+        d["spec"] = FleetRunSpec(**d["spec"])
+        d["acc_per_step"] = tuple(d["acc_per_step"])
+        d["chosen"] = tuple(tuple(c) for c in d["chosen"])
+        d["frames_sent"] = tuple(d["frames_sent"])
+        return cls(**d)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
+    """THE fleet entry point: spec in, typed result out.
+
+    Runs on the CUDA card unless `device="cpu"`. It turns TF32 off for
+    float32 matrix products and cuDNN convolutions
+    (torch.backends.cuda.matmul.allow_tf32 and
+    torch.backends.cudnn.allow_tf32 = False) so the detector runs in full
+    float32, as the model is specified. timings["compile_s"] is one
+    warm-up step on the initial state (its result discarded; the kernels
+    are built and loaded there), timings["steady_s"] the whole episode
+    after it; `camera_steps_per_s` is computed from steady_s."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prep = prepare_fleet_run(spec, device=device)
+    dev = prep.device
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        episode_step(prep.cfg, prep.wl, prep.statics, prep.state,
+                     prep.provider, prep.provider.init_carry(prep.state), 0)
+        _sync(dev)
+        compile_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        state, out = prep.episode()
+        _sync(dev)
+        steady_s = time.perf_counter() - t0
+
+    acc = out.acc_chosen.cpu().numpy().astype(np.float32)      # [E, F]
+    sent = out.sent.cpu().numpy()                               # [E, F, N]
+    return FleetResult(
+        spec=spec, n_cameras=spec.n_cameras,
+        n_steps=int(acc.shape[0]),
+        accuracy=float(acc.mean()),
+        acc_per_step=tuple(float(a) for a in acc.mean(axis=1)),
+        chosen=tuple(tuple(int(c) for c in row)
+                     for row in out.chosen.cpu().numpy()),
+        frames_sent=tuple(int(s) for s in sent.sum(axis=(1, 2))),
+        mean_shape=float(out.n_explored.cpu().numpy()
+                         .astype(np.float32).mean()),
+        timings={"build_s": prep.build_s, "compile_s": compile_s,
+                 "steady_s": steady_s,
+                 "episode_s": compile_s + steady_s},
+        state=state, out=out)

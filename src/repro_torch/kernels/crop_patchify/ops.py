@@ -1,0 +1,171 @@
+"""Candidate crops -> ViT patch-embedding tokens: plain PyTorch version,
+the CUDA kernel's wrapper (csrc/crop_patchify.cu) and the
+provider-native entry `crop_patchify`.
+
+The plain version composes the two stages the kernel fuses: render every
+(camera, window) crop — last-painter-wins ownership packed into one
+uint32 lane per object, owner = highest set bit of rowbits & colbits —
+then apply the conv patch-embed (stride = patch, VALID) as a patchify +
+matrix product. Its pixels are bit-identical to the reference renderer's
+packed path; the kernel paints the same pixels tile by tile and never
+writes them to device memory.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.scene.render import object_colors, render_background
+
+MAX_OBJECTS = 32        # object slots per uint32 ownership lane
+
+
+def render_crops_plain(ox, oy, ow, oh, colors, windows, bgn, *, res: int,
+                       min_visible: float) -> torch.Tensor:
+    """ox/oy/ow/oh [F, M] boxes; colors [F, M, 3]; windows [F, K, 4] or
+    fleet-shared [K, 4]; bgn [F, res, res, 3] background + noise.
+    -> crops [F, K, res, res, 3] in [0, 1]."""
+    f, m = ox.shape
+    if m > MAX_OBJECTS:
+        raise ValueError(f"packed ownership takes up to {MAX_OBJECTS} "
+                         f"objects, got {m}")
+    if windows.dim() == 2:
+        windows = windows[None].expand(f, -1, -1)
+    x0 = windows[..., 0][..., None]                  # [F, K, 1]
+    y0 = windows[..., 1][..., None]
+    fw = windows[..., 2][..., None]
+    fh = windows[..., 3][..., None]
+    ox0 = (ox - ow / 2)[:, None]                     # [F, 1, M]
+    ox1 = (ox + ow / 2)[:, None]
+    oy0 = (oy - oh / 2)[:, None]
+    oy1 = (oy + oh / 2)[:, None]
+
+    ix0 = torch.maximum(ox0, x0)
+    ix1 = torch.minimum(ox1, x0 + fw)
+    iy0 = torch.maximum(oy0, y0)
+    iy1 = torch.minimum(oy1, y0 + fh)
+    inter = (torch.clamp(ix1 - ix0, min=0.0)
+             * torch.clamp(iy1 - iy0, min=0.0))
+    area = (ox1 - ox0) * (oy1 - oy0)
+    keep = inter / torch.clamp(area, min=1e-9) >= min_visible
+
+    # clip first, then truncate (all values non-negative)
+    px0 = torch.clamp((ix0 - x0) / fw * res, 0, res - 1).to(torch.int64)
+    px1 = torch.clamp((ix1 - x0) / fw * res + 1, 1, res).to(torch.int64)
+    py0 = torch.clamp((iy0 - y0) / fh * res, 0, res - 1).to(torch.int64)
+    py1 = torch.clamp((iy1 - y0) / fh * res + 1, 1, res).to(torch.int64)
+
+    lane = torch.ones(m, dtype=torch.int64, device=ox.device) << torch.arange(
+        m, device=ox.device)
+    rc = torch.arange(res, device=ox.device)
+    rows = (keep[..., None] & (rc >= py0[..., None])
+            & (rc < py1[..., None]))                 # [F, K, M, res]
+    cols = (keep[..., None] & (rc >= px0[..., None])
+            & (rc < px1[..., None]))
+    rowbits = torch.sum(rows * lane[:, None], dim=-2)
+    colbits = torch.sum(cols * lane[:, None], dim=-2)
+    bits = rowbits[..., :, None] & colbits[..., None, :]   # [F, K, r, r]
+    # highest set bit: bits = mant * 2**e with mant in [0.5, 1), exact in
+    # float64 below 2**53; frexp(0) gives e = 0, so empty masks read -1
+    owner = torch.frexp(bits.to(torch.float64)).exponent.to(torch.int64) - 1
+    cam = torch.arange(f, device=ox.device)[:, None, None, None]
+    painted = colors[cam, torch.clamp(owner, min=0)]       # [F,K,r,r,3]
+    img = torch.where((owner >= 0)[..., None], painted, bgn[:, None])
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def crop_patchify_plain(ox, oy, ow, oh, colors, windows, bgn, wflat, bias,
+                        *, res: int, patch: int,
+                        min_visible: float) -> torch.Tensor:
+    """Render (render_crops_plain) + conv patch-embed. wflat [p*p*3, D]
+    (HWIO weights flattened), bias [D] -> tokens [F, K, (res/p)^2, D]."""
+    crops = render_crops_plain(ox, oy, ow, oh, colors, windows, bgn,
+                               res=res, min_visible=min_visible)
+    f, k = crops.shape[:2]
+    g = res // patch
+    tiles = crops.reshape(f * k, g, patch, g, patch, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(f * k, g * g, patch * patch * 3)
+    tok = torch.matmul(tiles, wflat) + bias
+    return tok.reshape(f, k, g * g, -1)
+
+
+def crop_patchify_batch(ox, oy, ow, oh, colors, windows, bgn, wflat,
+                         bias, *, res: int, patch: int,
+                         min_visible: float) -> torch.Tensor:
+    """Same contract as `crop_patchify_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if ox.device.type == "cpu":
+        return crop_patchify_plain(ox, oy, ow, oh, colors, windows, bgn,
+                                   wflat, bias, res=res, patch=patch,
+                                   min_visible=min_visible)
+    ins = (ox, oy, ow, oh, colors, windows, bgn, wflat, bias)
+    _lib.check_cuda("crop_patchify", *ins)
+    f, m = ox.shape
+    per_camera = windows.dim() == 3
+    k = windows.shape[-2]
+    d = wflat.shape[1]
+    if any(t.shape != (f, m) for t in (oy, ow, oh)):
+        raise ValueError("crop_patchify: object strips must be [F, M]")
+    if colors.shape != (f, m, 3):
+        raise ValueError("crop_patchify: colors must be [F, M, 3]")
+    if windows.shape != ((f, k, 4) if per_camera else (k, 4)):
+        raise ValueError("crop_patchify: windows must be [F, K, 4] or "
+                         "[K, 4]")
+    if bgn.shape != (f, res, res, 3):
+        raise ValueError("crop_patchify: bgn must be [F, res, res, 3]")
+    if wflat.shape != (patch * patch * 3, d) or bias.shape != (d,):
+        raise ValueError("crop_patchify: weights must be [p*p*3, D], "
+                         "bias [D]")
+    if m > MAX_OBJECTS or res % patch or res > 1024:
+        raise ValueError(f"crop_patchify kernel takes M <= {MAX_OBJECTS} "
+                         f"objects and res <= 1024 divisible by patch; got "
+                         f"M={m}, res={res}, patch={patch}")
+    g = res // patch
+    out = torch.empty((f, k, g * g, d), dtype=torch.float32,
+                      device=ox.device)
+    _lib.launch("crop_patchify", ox.device, *(t.data_ptr() for t in ins),
+                out.data_ptr(), f, m, k, int(per_camera), res, patch, d,
+                float(min_visible))
+    return out
+
+
+def crop_patchify(pos, size, kind, oid, windows, patch_params, *,
+                  patch: int, res: int, min_visible: float = 0.25,
+                  noise=None, block_k: int | None = None) -> torch.Tensor:
+    """pos/size [F, M, 2], kind [M], oid [F, M]; windows [F, K, 4] or
+    [K, 4] fleet-shared; patch_params {"w": [p, p, 3, D], "b": [D]} (the
+    conv patch-embed, HWIO); noise [F, res, res, 3] or None.
+    -> tokens [F, K, (res/p)^2, D].
+
+    `block_k` (plain version only; must divide K) renders the window axis
+    in slabs so the transient pixel buffer peaks at [F, block_k, res,
+    res, 3]; the kernel never materializes pixels and ignores it."""
+    if res % patch != 0:
+        raise ValueError(f"res={res} must be a multiple of patch={patch}")
+    k = windows.shape[-2]
+    if block_k is not None and (block_k <= 0 or k % block_k != 0):
+        raise ValueError(f"block_k={block_k} must divide the {k} windows")
+    dev = pos.device
+    colors = object_colors(kind, oid).to(torch.float32).contiguous()
+    bgn = render_background(res, dev)[None]
+    if noise is not None:
+        bgn = bgn + noise
+    bgn = bgn.expand(pos.shape[0], res, res, 3).contiguous()
+    wflat = patch_params["w"].to(torch.float32).reshape(
+        patch * patch * 3, -1).contiguous()
+    bias = patch_params.get("b")
+    bias = (torch.zeros(wflat.shape[1], device=dev) if bias is None
+            else bias.to(torch.float32).contiguous())
+    strips = [x.contiguous() for x in (pos[..., 0], pos[..., 1],
+                                       size[..., 0], size[..., 1])]
+    windows = windows.to(torch.float32).contiguous()
+
+    def run(w):
+        return crop_patchify_batch(*strips, colors, w, bgn, wflat, bias,
+                                    res=res, patch=patch,
+                                    min_visible=min_visible)
+
+    if dev.type != "cpu" or block_k is None or block_k >= k:
+        return run(windows)
+    return torch.cat([run(windows[..., s:s + block_k, :].contiguous())
+                      for s in range(0, k, block_k)], dim=1)
