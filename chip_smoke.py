@@ -5,17 +5,33 @@
 Phases (every one must pass; the exit code is non-zero otherwise):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from src/repro_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes, and time both with CUDA events;
+  2. build the CUDA kernels from src/repro_torch/csrc with nvcc (one
+     process per source, all started together);
+  3. hold each kernel against its plain PyTorch version on the card —
+     the three main-path kernels at the main path's shapes, then
+     flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
+     with q_offset, bf16), box_iou, nms_mask/match_boxes (card vs CPU),
+     frame_delta and rmsnorm at full-size shapes — and time each with
+     CUDA events beside its bound and, where one PyTorch call computes
+     the same function, that call;
   4. check the port end to end on a small input: run_fleet on the card
      and on the CPU (plain versions) must make the same decisions;
   5. drive the main path once — run_fleet(provider="detector") at the
      full width of madeye-approx, 64 cameras, 8 steps, shortlist_k=18 —
      with the launch counters set to 0 just before and read just after;
-     every kernel must have launched, and the result must be well formed;
-  6. time one step of the main path stage by stage;
-  7. print one JSON line describing every kernel, the card line again,
+     each of the three main-path kernels must have launched (and no
+     other: run_fleet runs the reference's plain attention), and the
+     result must be well formed;
+  6. drive the ViT flash path: the main path's own crop_patchify tokens
+     (64 cameras x 18 crops) through vit_features_tokens(impl="flash")
+     with the counters set to 0 just before — flash_attention must launch
+     once per layer — and through impl="xla"; both go on through the
+     neck, heads and decode, and features and detections must agree;
+  7. drive the kernel APIs (box_iou, nms_mask, match_boxes, frame_delta
+     over one 1080p frame per camera, rmsnorm) with the counters set to
+     0 just before and read just after;
+  8. time one step of the main path stage by stage;
+  9. print one JSON line describing every kernel, the card line again,
      and as the last line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.
@@ -30,6 +46,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -43,6 +60,12 @@ from repro_torch.fleet.api import (  # noqa: E402
 from repro_torch.fleet.state import fleet_statics  # noqa: E402
 from repro_torch.fleet.step import FleetObs, fleet_step  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.box_iou.ops import (  # noqa: E402
+    box_iou,
+    box_iou_plain,
+    match_boxes,
+    nms_mask,
+)
 from repro_torch.kernels.cell_rasterize.ops import (  # noqa: E402
     cell_rasterize,
     cell_rasterize_plain,
@@ -51,10 +74,29 @@ from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
     crop_patchify_batch,
     crop_patchify_plain,
 )
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
+from repro_torch.kernels.frame_delta.ops import (  # noqa: E402
+    frame_delta,
+    frame_delta_plain,
+    frame_delta_tiles,
+)
 from repro_torch.kernels.neighbor_score.ops import (  # noqa: E402
     neighbor_score_batch,
     neighbor_score_plain,
 )
+from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
+    rmsnorm,
+    rmsnorm_plain,
+)
+from repro_torch.models.detector import (  # noqa: E402
+    _decode_detections,
+    head_outputs,
+    neck_features,
+)
+from repro_torch.models.vit import vit_features_tokens  # noqa: E402
 from repro_torch.scene.observe import (  # noqa: E402
     detections_obs,
     grid_windows,
@@ -75,10 +117,18 @@ from repro_torch.scene.scene import (  # noqa: E402
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
+MAIN_PATH_KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify")
 # the card's published peaks (NVIDIA H100 SXM data sheet: HBM3 bandwidth,
-# float32 outside the tensor cores)
+# float32 outside the tensor cores, dense bf16 on the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+# stablelm-3b's attention (src/repro/configs/stablelm_3b.py: 32 heads of
+# 80 dims, MHA), batch 2 at a 4096-token context
+STABLELM_ATTN = dict(b=2, s=4096, h=32, d=80)
+N_BOX_CAMERAS = 16      # box_iou: one step's detections of 16 cameras
+FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
+RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
 SOURCES = {
     "neighbor_score": (
@@ -90,6 +140,18 @@ SOURCES = {
     "crop_patchify": (
         "src/repro_torch/csrc/crop_patchify.cu",
         "src/repro/kernels/crop_patchify/crop_patchify.py:95"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:104"),
+    "box_iou": (
+        "src/repro_torch/csrc/box_iou.cu",
+        "src/repro/kernels/box_iou/box_iou.py:49"),
+    "frame_delta": (
+        "src/repro_torch/csrc/frame_delta.cu",
+        "src/repro/kernels/frame_delta/frame_delta.py:36"),
+    "rmsnorm": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/rmsnorm.py:27"),
 }
 
 
@@ -134,9 +196,10 @@ def check_close(name, got, want, atol, rtol=0.0):
                 f"{float((g - w).abs().max())})")
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -252,10 +315,178 @@ def kernel_phase(dev) -> dict:
                          5),
         bound=bound(n_bytes, 2.0 * f * k * gg * depth * d))
     for name, r in rows.items():
-        print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
-              f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-              f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})",
-              flush=True)
+        print_row(name, r)
+    return rows
+
+
+def print_row(name: str, r: dict) -> None:
+    lib = r.get("library_ms")
+    print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
+          f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+          f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) library_ms="
+          + ("null" if lib is None else f"{lib:.6f}"), flush=True)
+
+
+def attn_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """Unmasked (query, key) pairs: what the kernel's work depends on."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + q_offset + 1)) for i in range(sq))
+
+
+def flash_case(dev, b, sq, sk, hq, hkv, d, *, causal=False, q_offset=0,
+               dtype=torch.float32, iters=10, plain_iters=3,
+               library=False) -> dict:
+    """flash_attention against its plain version on seeded N(0, 1)
+    inputs (logits of unit scale), timed beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 131 + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    kw = dict(causal=causal, q_offset=q_offset)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    # float32: the online softmax sums in another order (3e-5 on outputs
+    # of order 1); bf16: one bf16 rounding of the output (2e-2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
+    name = (f"flash_attention[{b}x{sq}x{hq}x{d} kv {sk}x{hkv} "
+            f"causal={causal} q_offset={q_offset} {str(dtype)[6:]}]")
+    check_close(name, (got.float(),), (want.float(),), atol=tol, rtol=tol)
+    es = q.element_size()
+    n_bytes = es * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)
+    n_ops = 4.0 * b * hq * attn_pairs(sq, sk, causal, q_offset) * d
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    row = dict(max_abs_err=float((got.float() - want.float()).abs().max()),
+               ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), iters),
+               plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                plain_iters),
+               bound=bound(n_bytes, n_ops, peak), library_ms=None)
+    del got, want
+    if library:
+        # PyTorch's own fused attention on the same inputs in [B, H, S, D]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        row["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal), iters)
+    print_row(name, row)
+    return row
+
+
+def delta_frames(n: int, dev, seed: int):
+    """n (cur, prev) frame pairs [n, *FRAME]: each 16 x 128 tile moves by
+    N(0, sigma) noise with sigma 0.002 (still), 0.025 (at tau's edge) or
+    0.05 (moving)."""
+    h, w, c = FRAME
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prev = torch.rand((n, h, w, c), generator=gen, device=dev)
+    sig = torch.tensor([0.002, 0.025, 0.05], device=dev)[torch.randint(
+        0, 3, (n, -(-h // 16), -(-w // 128)), generator=gen, device=dev)]
+    sig = sig.repeat_interleave(16, 1)[:, :h]
+    sig = sig.repeat_interleave(128, 2)[..., :w]
+    cur = prev + sig[..., None] * torch.randn((n, h, w, c), generator=gen,
+                                              device=dev)
+    return cur, prev
+
+
+def check_frame_delta(cur, prev, dq, changed, name) -> tuple[int, int]:
+    """changed equal except on tiles whose plain mean lies within 1e-6 of
+    tau (a sum in another order may flip them); int8 residuals equal
+    wherever both sides agree on the tile. Returns (max |int8 difference|
+    over the whole frame, tiles flipped)."""
+    h, w, c = cur.shape
+    dq_p, changed_p = frame_delta_plain(cur, prev)
+    d = F.pad(cur - prev, (0, 0, 0, (-w) % 128, 0, (-h) % 16))
+    mean = d.abs().reshape(d.shape[0] // 16, 16, d.shape[1] // 128, 128,
+                           c).mean(dim=(1, 3, 4))
+    agree = changed == changed_p
+    if not bool((agree | ((mean - 0.02).abs() < 1e-6)).all()):
+        raise AssertionError(f"{name}: changed differs away from tau")
+    px = agree.repeat_interleave(16, 0)[:h].repeat_interleave(128, 1)[:, :w]
+    if not bool(((dq == dq_p) | ~px[..., None]).all()):
+        raise AssertionError(f"{name}: int8 residuals differ")
+    return (int((dq.int() - dq_p.int()).abs().max()),
+            int((~agree).sum()))
+
+
+def new_kernel_phase(dev) -> dict:
+    """flash_attention, box_iou, frame_delta and rmsnorm against their
+    plain versions at full-size shapes (tolerances and reasons inline),
+    timed beside their bounds and, where one PyTorch call computes the
+    same function, that call. Returns per-kernel rows."""
+    rows = {}
+    # flash_attention: the ViT's layer (64 cameras x 18 crops, 197
+    # tokens, 6 heads of 32) is the row; stablelm-3b's causal width, GQA
+    # with q_offset and bf16 are cases
+    rows["flash_attention"] = flash_case(
+        dev, N_CAMERAS * SHORTLIST_K, 197, 197, 6, 6, 32, iters=20,
+        plain_iters=5, library=True)
+    sl = STABLELM_ATTN
+    flash_case(dev, sl["b"], sl["s"], sl["s"], sl["h"], sl["h"], sl["d"],
+               causal=True, iters=5, plain_iters=2, library=True)
+    flash_case(dev, 4, 100, 164, 8, 2, 64, causal=True, q_offset=64)
+    flash_case(dev, 64, 256, 256, 8, 8, 64, dtype=torch.bfloat16)
+
+    # box_iou: the same float32 ops in the same order -> 1e-6
+    n = N_BOX_CAMERAS * SHORTLIST_K * 32
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def boxes():
+        return torch.cat([torch.rand((n, 2), generator=gen, device=dev),
+                          0.02 + 0.3 * torch.rand((n, 2), generator=gen,
+                                                  device=dev)], 1)
+
+    a, b = boxes(), boxes()
+    got, want = box_iou(a, b), box_iou_plain(a, b)
+    torch.cuda.synchronize()
+    check_close("box_iou", (got,), (want,), atol=1e-6)
+    # ~13 operations per pair (4 min/max, 4 sub/add, 2 clamps, 1 product,
+    # 1 max, 1 division)
+    rows["box_iou"] = dict(
+        max_abs_err=max_err((got,), (want,)),
+        ms=cuda_ms(lambda: box_iou(a, b), 50),
+        plain_ms=cuda_ms(lambda: box_iou_plain(a, b), 10),
+        bound=bound(4 * (4 * n + 4 * n + n * n), 13.0 * n * n),
+        library_ms=None)
+    del got, want
+    print_row("box_iou", rows["box_iou"])
+
+    # frame_delta on one 1080p frame
+    cur, prev = (x[0] for x in delta_frames(1, dev, 2))
+    dq, changed = frame_delta_tiles(cur, prev)
+    torch.cuda.synchronize()
+    err, flipped = check_frame_delta(cur, prev, dq, changed, "frame_delta")
+    print(f"frame_delta: {flipped} of {changed.numel()} tiles flipped "
+          f"(plain mean within 1e-6 of tau), max |int8 difference| {err}",
+          flush=True)
+    h, w, c = FRAME
+    gg = changed.numel()
+    rows["frame_delta"] = dict(
+        max_abs_err=float(err),
+        ms=cuda_ms(lambda: frame_delta_tiles(cur, prev), 100),
+        plain_ms=cuda_ms(lambda: frame_delta_plain(cur, prev), 20),
+        bound=bound(h * w * c * (4 + 4 + 1) + 4 * gg, 6.0 * h * w * c),
+        library_ms=None)
+    print_row("frame_delta", rows["frame_delta"])
+
+    # rmsnorm: a 2560-term sum of squares in another order and a
+    # correctly rounded 1/sqrt against torch.rsqrt -> 1e-5
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(RMS_SHAPE, generator=gen, device=dev)
+    wt = torch.randn(RMS_SHAPE[-1], generator=gen, device=dev) + 1.0
+    got, want = rmsnorm(x, wt), rmsnorm_plain(x, wt)
+    torch.cuda.synchronize()
+    check_close("rmsnorm", (got,), (want,), atol=1e-5, rtol=1e-5)
+    err = max_err((got,), (want,))
+    del got, want
+    rows["rmsnorm"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: rmsnorm(x, wt), 20),
+        plain_ms=cuda_ms(lambda: rmsnorm_plain(x, wt), 10),
+        bound=bound(4 * (2 * x.numel() + wt.numel()), 4.0 * x.numel()),
+        library_ms=cuda_ms(lambda: F.rms_norm(x, (RMS_SHAPE[-1],), wt,
+                                              eps=1e-6), 20))
+    print_row("rmsnorm", rows["rmsnorm"])
     return rows
 
 
@@ -279,13 +510,9 @@ def small_parity_phase() -> None:
           f"frames_sent {on_card.frames_sent})", flush=True)
 
 
-def main_path_phase():
+def main_path_phase(spec: FleetRunSpec):
     """Drive run_fleet once at the main path's cell; return (result,
     launch counts of that run)."""
-    spec = FleetRunSpec(
-        provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
-        shortlist_k=SHORTLIST_K,
-        provider_kwargs={"det_cfg": get_config("madeye-approx")})
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     result = run_fleet(spec)
@@ -304,10 +531,15 @@ def main_path_phase():
     if len(result.frames_sent) != N_STEPS or min(result.frames_sent) < 0:
         raise AssertionError(f"frames_sent malformed: "
                              f"{result.frames_sent}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    stray = [k for k, v in counts.items()
+             if v and k not in MAIN_PATH_KERNELS]
+    if stray:
+        raise AssertionError(f"kernels off the main path launched on it: "
+                             f"{stray}")
     t = result.timings
     print(f"main path: accuracy={result.accuracy:.6f} "
           f"frames_sent={list(result.frames_sent)} "
@@ -316,6 +548,130 @@ def main_path_phase():
           f"peak_mem_gib={peak:.2f} launches={counts} "
           f"(over {N_STEPS} steps + 1 warm-up step)", flush=True)
     return result, counts
+
+
+def vit_flash_phase(spec: FleetRunSpec):
+    """The ViT flash path on the main path's own crop_patchify tokens
+    (its first step: F cameras x K shortlisted crops): the backbone with
+    impl="flash" (counters set to 0 just before, read just after) and
+    impl="xla", each through the neck, heads and decode. Returns (row,
+    flash detections)."""
+    prep = prepare_fleet_run(spec)
+    p, st, cfg = prep.provider, prep.state, prep.cfg
+    dc = p.det_cfg
+    sc, dp = p.init_carry(st)
+    dev = prep.device
+    kinds = torch.as_tensor(kind_mask(p.scene.spec), device=dev)
+    with torch.no_grad():
+        sc1, _ = p.scene.oracle(cfg, prep.wl, sc, st)
+        noise = render_noise(st.rng, st.step_idx * p.scene.stride,
+                             dc.img_res) * p.noise
+        tokens, _ = p._shortlist_tokens(cfg, st, sc1, dp, kinds, noise)
+        tokens = tokens.reshape((-1,) + tokens.shape[2:])   # [F*K, P, D]
+        vp = dp["backbone"]["vit"]
+
+        def backbone(impl):
+            return vit_features_tokens(vp, tokens, n_heads=dc.n_heads,
+                                       impl=impl)
+
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        feats_f = backbone("flash")
+        torch.cuda.synchronize()
+        counts = _lib.launch_counts()
+        if counts["flash_attention"] != dc.n_layers or any(
+                v for k, v in counts.items() if k != "flash_attention"):
+            raise AssertionError(f"ViT flash path launches {counts}, want "
+                                 f"flash_attention x {dc.n_layers} only")
+        feats_x = backbone("xla")
+
+        def detect(feats):
+            return _decode_detections(dc, *head_outputs(
+                dp["heads"], neck_features(dp["backbone"], feats)))
+
+        det_f, det_x = detect(feats_f), detect(feats_x)
+        torch.cuda.synchronize()
+        # 6 layers of float32 attention summed in another order: 1e-4 on
+        # features of order 1 and on scores in [0, 1]; boxes compared
+        # where both pick the same cell (a near-tie may swap two cells)
+        check_close("vit flash features", (feats_f,), (feats_x,), atol=1e-4)
+        check_close("vit flash scores", (det_f.scores,), (det_x.scores,),
+                    atol=1e-4)
+        box_err = (det_f.boxes - det_x.boxes).abs().amax(-1)
+        swapped = int((box_err > 1e-4).sum())
+        if swapped > det_f.scores.numel() // 1000:
+            raise AssertionError(f"vit flash boxes: {swapped} of "
+                                 f"{det_f.scores.numel()} differ")
+        ms_f = cuda_ms(lambda: backbone("flash"), 3)
+        ms_x = cuda_ms(lambda: backbone("xla"), 3)
+    row = dict(launches=counts["flash_attention"],
+               feats_err=max_err((feats_f,), (feats_x,)),
+               scores_err=max_err((det_f.scores,), (det_x.scores,)),
+               boxes_swapped=swapped, backbone_flash_ms=ms_f,
+               backbone_xla_ms=ms_x)
+    print(f"vit flash path: tokens {tuple(tokens.shape)} "
+          f"launches={counts} features max_abs_err={row['feats_err']:.3e} "
+          f"scores max_abs_err={row['scores_err']:.3e} "
+          f"boxes off by >1e-4: {swapped} of {det_f.scores.numel()} "
+          f"backbone ms flash={ms_f:.3f} xla={ms_x:.3f}", flush=True)
+    return row, det_f
+
+
+def kernel_api_phase(dev, dets) -> dict:
+    """The kernel APIs driven as a user calls them, counters set to 0
+    just before and read just after: box_iou over one step's detections
+    of N_BOX_CAMERAS cameras, nms_mask and match_boxes over 8 crops,
+    frame_delta over one 1080p frame per camera, rmsnorm at stablelm-3b's
+    width. NMS and matching must equal the CPU's; returns the counts."""
+    boxes = dets.boxes[:N_BOX_CAMERAS * SHORTLIST_K].reshape(-1, 4)
+    crops = dets.boxes[:8].contiguous(), dets.scores[:8].contiguous()
+    cur, prev = delta_frames(N_CAMERAS, dev, 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(RMS_SHAPE, generator=gen, device=dev)
+    wt = torch.ones(RMS_SHAPE[-1], device=dev)
+
+    def nms_and_match(bx, sc):
+        keep = [nms_mask(bx[i], sc[i], sc[i] > 0) for i in range(8)]
+        match = [match_boxes(bx[i], bx[(i + 1) % 8],
+                             sc[(i + 1) % 8] > sc[(i + 1) % 8].median(),
+                             iou_thresh=0.3) for i in range(8)]
+        return keep, match
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    iou = box_iou(boxes, boxes)
+    keep, match = nms_and_match(*crops)
+    deltas = [frame_delta(cur[i], prev[i]) for i in range(N_CAMERAS)]
+    y = rmsnorm(x, wt)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+
+    want = {"box_iou": 1 + 16, "frame_delta": N_CAMERAS, "rmsnorm": 1}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"kernel API launches {counts}, want {want}")
+    keep_c, match_c = nms_and_match(*(t.cpu() for t in crops))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(keep, keep_c))
+    same &= all(torch.equal(a.cpu(), b) for m, mc in zip(match, match_c)
+                for a, b in zip(m, mc))
+    if not same:
+        raise AssertionError("nms_mask / match_boxes: card != CPU")
+    fd = [check_frame_delta(cur[i], prev[i], *deltas[i][:2],
+                            f"frame_delta[{i}]") for i in range(N_CAMERAS)]
+    diag = torch.diagonal(iou)[dets.scores[:N_BOX_CAMERAS
+                                           * SHORTLIST_K].reshape(-1) > 0]
+    sent = torch.stack([d[1].sum() for d in deltas])
+    if not (bool(((diag - 1).abs() < 1e-5).all())
+            and bool(torch.isfinite(y).all())
+            and all(int(d[2]) > 0 for d in deltas)):
+        raise AssertionError("kernel API outputs malformed")
+    print(f"kernel APIs: launches={counts} boxes={boxes.shape[0]} "
+          f"kept per crop={[int(k.sum()) for k in keep]} "
+          f"matched per crop={[int(m[0].sum()) for m in match]} "
+          f"changed tiles per frame (mean)={float(sent.float().mean()):.1f}"
+          f" of {deltas[0][1].numel()}, flipped against the plain version "
+          f"{sum(f for _, f in fd)} (max |int8 difference| "
+          f"{max(e for e, _ in fd)})", flush=True)
+    return counts
 
 
 def stage_phase(spec: FleetRunSpec) -> None:
@@ -376,12 +732,19 @@ def main() -> int:
     print(_lib.build_log().strip(), flush=True)
 
     rows = kernel_phase(dev)
+    rows.update(new_kernel_phase(dev))
     small_parity_phase()
-    _, counts = main_path_phase()
-    stage_phase(FleetRunSpec(
+    spec = FleetRunSpec(
         provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
         shortlist_k=SHORTLIST_K,
-        provider_kwargs={"det_cfg": get_config("madeye-approx")}))
+        provider_kwargs={"det_cfg": get_config("madeye-approx")})
+    _, counts = main_path_phase(spec)
+    vit_row, dets = vit_flash_phase(spec)
+    counts["flash_attention"] = vit_row["launches"]
+    api_counts = kernel_api_phase(dev, dets)
+    for name in ("box_iou", "frame_delta", "rmsnorm"):
+        counts[name] = api_counts[name]
+    stage_phase(spec)
 
     kernels = []
     for name, r in rows.items():
@@ -391,7 +754,7 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None})
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -194,12 +194,14 @@ class DetectorProvider:
                             n_zoom=len(cfg.zoom_levels))
         return (sc, dp), FleetObs(*do, mbps=mbps_t, rtt=rtt_t)
 
-    def _score_fused(self, cfg, state, sc, dp, kinds, noise_img):
-        """Shortlist -> fused crop->token kernel -> one [F*K] forward,
-        detections scattered back to the full window axis."""
+    def _shortlist_tokens(self, cfg, state, sc, dp, kinds, noise_img):
+        """Shortlist -> fused crop->token kernel: (tokens [F, K, gg, D],
+        shortlisted window indices [F, K], or None when K covers every
+        window)."""
         p = self.scene
         c = p.windows.shape[0]
         k = self._effective_k()
+        widx = None
         if k < c:
             widx = shortlist_windows(cfg, state, self.nbr8, k)
             wins = p.windows[widx]                          # [F, K, 4]
@@ -211,11 +213,19 @@ class DetectorProvider:
             patch=self.det_cfg.patch, res=self.det_cfg.img_res,
             min_visible=p.spec.min_visible, noise=noise_img,
             block_k=_auto_chunk(k, self.chunk))             # [F, K, gg, D]
-        f = tokens.shape[0]
+        return tokens, widx
+
+    def _score_fused(self, cfg, state, sc, dp, kinds, noise_img):
+        """Shortlist -> fused crop->token kernel -> one [F*K] forward,
+        detections scattered back to the full window axis."""
+        tokens, widx = self._shortlist_tokens(cfg, state, sc, dp, kinds,
+                                              noise_img)
+        f, k = tokens.shape[:2]
+        c = self.scene.windows.shape[0]
         dets = detector_forward_tokens(
             dp, self.det_cfg, tokens.reshape((f * k,) + tokens.shape[2:]))
         dets = type(dets)(*(x.reshape((f, k) + x.shape[1:]) for x in dets))
-        if k < c:
+        if widx is not None:
             # un-shortlisted windows read as score-0 detections (empty
             # under any positive threshold), so detections_obs and the
             # step consume the same full [F, C] axis either way

@@ -4,6 +4,10 @@ each with a plain PyTorch version beside its wrapper:
   neighbor_score   candidate scoring inside the shape-search loops
   cell_rasterize   boxes -> (cell x zoom) oracle tables, once per step
   crop_patchify    shortlisted crops -> ViT patch tokens, once per step
+  flash_attention  online-softmax attention (the ViT's impl="flash")
+  box_iou          dense IoU matrix under NMS and box matching
+  frame_delta      per-tile change mask + int8 residual of a frame
+  rmsnorm          fused RMSNorm over rows
 
 `_lib` builds them with nvcc at the first launch and counts launches.
 """

@@ -2,11 +2,12 @@
 
 The sources are `repro_torch/csrc/*.cu`, each with a plain C entry point
 `<name>_launch(...)` that enqueues the kernel on the given stream and
-returns `cudaGetLastError()`. One nvcc call compiles them for Hopper
-(sm_90a) into a shared library under `<checkout>/build/repro_torch/`,
-named by a hash of the sources and flags so an edited source never
-loads a stale build; ctypes loads it at the first launch (nothing is
-built or imported at module import, so the CPU tests import freely).
+returns `cudaGetLastError()`. nvcc compiles them for Hopper (sm_90a),
+one process per source started together, and links the objects into one
+shared library under `<checkout>/build/repro_torch/`, named by a hash of
+the sources and flags so an edited source never loads a stale build;
+ctypes loads it at the first launch (nothing is built or imported at
+module import, so the CPU tests import freely).
 
 `-fmad=false` keeps nvcc from contracting `a*b + c` into an FMA: the
 geometry (visibility cuts, pixel bounds) must round exactly like the
@@ -28,14 +29,16 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("neighbor_score.cu", "cell_rasterize.cu", "crop_patchify.cu")
+SOURCES = ("neighbor_score.cu", "cell_rasterize.cu", "crop_patchify.cu",
+           "flash_attention.cu", "box_iou.cu", "frame_delta.cu",
+           "rmsnorm.cu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify")
+KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify",
+           "flash_attention", "box_iou", "frame_delta", "rmsnorm")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -49,6 +52,16 @@ _SIGNATURES = {
     # ox, oy, ow, oh, colors, windows, bgn, w, b, out, F, M, K,
     # per_camera_windows, res, patch, D, min_visible, stream
     "crop_patchify_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+    # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, scale, causal, q_offset,
+    # is_bf16, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # a, b, out, N, M, stream
+    "box_iou_launch": [_P] * 3 + [_I] * 2 + [_P],
+    # cur, prev, delta_q, changed, H, W, C, tile_h, tile_w, tau, scale,
+    # stream
+    "frame_delta_launch": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
+    # x, weight, out, T, D, eps, is_bf16, stream
+    "rmsnorm_launch": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
 }
 
 _state: dict = {"lib": None, "path": None, "log": ""}
@@ -81,22 +94,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; return their joined output, or
+    raise with it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}\n{log}")
+    return log
+
+
 def build() -> Path:
-    """Compile the kernels (once per source hash); returns the .so path.
-    The compiler's register/spill report is kept in `build_log()`."""
+    """Compile the kernels (once per source hash): one nvcc per source,
+    all started together, then one link. Returns the .so path. The
+    compiler's register/spill report is kept in `build_log()`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _state["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{_state['log']}")
-    out.with_suffix(".log").write_text(_state["log"])
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                     str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                      *(str(o) for o in objs)]])
+    _state["log"] = log
+    for o in objs:
+        o.unlink()
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
@@ -119,15 +153,17 @@ def library() -> ctypes.CDLL:
     return _state["lib"]
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes=(torch.float32,)) -> None:
     """Device, dtype and layout checks before handing pointers to a
-    kernel: float32, one CUDA device, C-contiguous."""
+    kernel: one of `dtypes` (float32 by default), one CUDA device,
+    C-contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expected {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
 

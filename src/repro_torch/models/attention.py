@@ -1,32 +1,142 @@
-"""Multi-head attention as the ViT detector runs it: q/k/v projections,
-float32 logits, softmax, product with V — written as plain products, the
-reference's "xla" path. (The flash-attention kernel is not on this
-path.) Shapes follow [batch, seq, heads, head_dim]."""
+"""Attention: multi-head and grouped-query (GQA) blocks, RoPE, and the
+scaled-dot-product core behind one `impl` switch:
+
+  - "xla":   plain PyTorch products with float32 logits (the reference
+             path; sequences of CHUNKED_THRESHOLD or more run in query
+             chunks so the logits stay bounded);
+  - "flash": the flash-attention kernel (kernels/flash_attention: CUDA
+             on the card, its plain version on the CPU).
+
+Shapes follow [batch, seq, heads, head_dim] ("BSHD"); parameters are the
+reference's dictionaries (`wq/wk/wv/wo`, each `w` and optional `b`).
+"""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import Params, linear, linear_init
 
-
-def mha_init(gen, d_model: int, n_heads: int, *, device=None) -> Params:
-    return {name: linear_init(gen, d_model, d_model, device=device)
-            for name in ("wq", "wk", "wv", "wo")}
+CHUNKED_THRESHOLD = 2048   # query length from which "xla" runs in chunks
+CHUNK = 1024               # query rows per chunk
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q/k/v [B, S, H, D] -> [B, S, H, D], non-causal, no mask."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, max_seq: int, theta: float = 10000.0,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    """[max_seq, head_dim // 2] angles."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(max_seq, dtype=torch.float32, device=device)
+    return torch.outer(t, inv).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D]; angles [S, D/2] (already positioned)."""
+    d_half = x.shape[-1] // 2
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# scaled-dot-product attention
+# ---------------------------------------------------------------------------
+
+def sdpa_xla(q, k, v, *, causal: bool = False, bias=None, q_offset: int = 0,
+             scale: float | None = None) -> torch.Tensor:
+    """q/k [B, Sq|Sk, Hq|Hkv, D], v [B, Sk, Hkv, Dv], Hq % Hkv == 0.
+    Masked logits are -1e30 (a row never goes NaN); bias, if given, is
+    added to the float32 logits [B, Hkv, G, Sq, Sk]."""
+    b, sq, hq, d = q.shape
+    sk, hkv, dv = v.shape[1], v.shape[2], v.shape[3]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk",
+                          q.float().reshape(b, sq, hkv, g, d),
+                          k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        logits = torch.where(kpos[None, :] <= qpos[:, None], logits, -1e30)
+    if bias is not None:
+        logits = logits + bias.float()
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
-def attention(p: Params, x: torch.Tensor, *, n_heads: int) -> torch.Tensor:
+def sdpa_chunked(q, k, v, *, causal: bool = False, q_offset: int = 0,
+                 scale: float | None = None,
+                 chunk: int = CHUNK) -> torch.Tensor:
+    """Exact attention with [chunk, Sk] logits per step: `sdpa_xla` over
+    query chunks (Sq must be a multiple of `chunk`; otherwise one
+    `sdpa_xla` call)."""
+    sq = q.shape[1]
+    if sq % chunk:
+        return sdpa_xla(q, k, v, causal=causal, q_offset=q_offset,
+                        scale=scale)
+    return torch.cat([
+        sdpa_xla(q[:, i:i + chunk], k, v, causal=causal,
+                 q_offset=q_offset + i, scale=scale)
+        for i in range(0, sq, chunk)], dim=1)
+
+
+def sdpa(q, k, v, *, causal: bool = False, bias=None, q_offset: int = 0,
+         impl: str = "xla", scale: float | None = None) -> torch.Tensor:
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"impl must be 'xla' or 'flash', got {impl!r}")
+    if impl == "flash" and bias is None:
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         q_offset=q_offset, scale=scale)
+    if bias is None and q.shape[1] >= CHUNKED_THRESHOLD:
+        return sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                            scale=scale)
+    return sdpa_xla(q, k, v, causal=causal, bias=bias, q_offset=q_offset,
+                    scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA block (dense LMs; the ViT with n_kv_heads == n_heads)
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
+             head_dim: int | None = None, *, bias: bool = False,
+             device=None) -> Params:
+    head_dim = head_dim or d_model // n_heads
+    return {
+        "wq": linear_init(gen, d_model, n_heads * head_dim, bias=bias,
+                          device=device),
+        "wk": linear_init(gen, d_model, n_kv_heads * head_dim, bias=bias,
+                          device=device),
+        "wv": linear_init(gen, d_model, n_kv_heads * head_dim, bias=bias,
+                          device=device),
+        "wo": linear_init(gen, n_heads * head_dim, d_model, bias=bias,
+                          device=device),
+    }
+
+
+def gqa_qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int):
     b, s, _ = x.shape
     q = linear(p["wq"], x).reshape(b, s, n_heads, -1)
-    k = linear(p["wk"], x).reshape(b, s, n_heads, -1)
-    v = linear(p["wv"], x).reshape(b, s, n_heads, -1)
-    return linear(p["wo"], sdpa(q, k, v).reshape(b, s, -1))
+    k = linear(p["wk"], x).reshape(b, s, n_kv_heads, -1)
+    v = linear(p["wv"], x).reshape(b, s, n_kv_heads, -1)
+    return q, k, v
+
+
+def gqa_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                  n_kv_heads: int, angles: torch.Tensor | None = None,
+                  causal: bool = True, impl: str = "xla") -> torch.Tensor:
+    b, s, _ = x.shape
+    q, k, v = gqa_qkv(p, x, n_heads, n_kv_heads)
+    if angles is not None:
+        q = apply_rope(q, angles[:s])
+        k = apply_rope(k, angles[:s])
+    o = sdpa(q, k, v, causal=causal, impl=impl)
+    return linear(p["wo"], o.reshape(b, s, -1))

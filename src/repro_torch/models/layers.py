@@ -1,10 +1,12 @@
 """The layers the ViT detector uses, as plain functions on parameter
 dictionaries (the JAX package's pytree layout, so one checkpoint serves
-both): linear, layernorm, the GELU MLP and the NHWC/HWIO convolution.
+both): linear, layernorm, rmsnorm, the GELU MLP and the NHWC/HWIO
+convolution.
 
 Numerics follow the reference: layernorm uses the population variance
-and eps = 1e-6 (torch's default is 1e-5); GELU is the tanh
-approximation; everything is float32.
+and eps = 1e-6 (torch's default is 1e-5); rmsnorm computes in float32
+and returns x's dtype; GELU is the tanh approximation; everything else
+is float32.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
 
 Params = dict
 
@@ -28,11 +32,13 @@ def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
     return x.to(device)
 
 
-def linear_init(gen, d_in: int, d_out: int, *, device=None) -> Params:
-    return {"w": trunc_normal(gen, (d_in, d_out),
-                              std=math.sqrt(1.0 / max(1, d_in)),
-                              device=device),
-            "b": torch.zeros(d_out, device=device)}
+def linear_init(gen, d_in: int, d_out: int, *, bias: bool = True,
+                device=None) -> Params:
+    p = {"w": trunc_normal(gen, (d_in, d_out),
+                           std=math.sqrt(1.0 / max(1, d_in)), device=device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, device=device)
+    return p
 
 
 def conv_init(gen, k_h: int, k_w: int, c_in: int, c_out: int, *,
@@ -42,6 +48,10 @@ def conv_init(gen, k_h: int, k_w: int, c_in: int, c_out: int, *,
                               std=math.sqrt(2.0 / max(1, fan_in)),
                               device=device),
             "b": torch.zeros(c_out, device=device)}
+
+
+def rmsnorm_init(dim: int, *, device=None) -> Params:
+    return {"scale": torch.ones(dim, device=device)}
 
 
 def layernorm_init(dim: int, *, device=None) -> Params:
@@ -58,6 +68,10 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm_plain(x, p["scale"], eps)
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -140,8 +140,14 @@ def test_port_init_has_reference_layout(weights):
 
 
 def test_pos_embed_mismatch_raises(weights):
+    """Tokens that form no square grid raise; a square grid of another
+    size resizes pos_embed (held against JAX in test_torch_attention)."""
     _, tp = weights
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tvit.vit_encode_tokens(tp["backbone"]["vit"],
-                               torch.zeros(1, 9, JCFG.d_model),
+                               torch.zeros(1, 10, JCFG.d_model),
                                n_heads=JCFG.n_heads)
+    out = tvit.vit_encode_tokens(tp["backbone"]["vit"],
+                                 torch.zeros(1, 9, JCFG.d_model),
+                                 n_heads=JCFG.n_heads)
+    assert out.shape == (1, 10, JCFG.d_model)

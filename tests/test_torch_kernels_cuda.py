@@ -6,14 +6,22 @@ mode). Imports no JAX, so it runs where the card is:
 
 Tolerances: counts exact; neighbor scores, areas and moments 1e-5
 (float32 sums in another order); patch tokens 1e-4 absolute on values of
-order 1 (the token product's FMAs vs torch.matmul). chip_smoke.py runs
-the same checks at the main path's full-width shapes.
+order 1 (the token product's FMAs vs torch.matmul); attention 3e-5 in
+float32 (online softmax, sums in another order) and 2e-2 in bfloat16;
+IoU 1e-6; NMS masks, matches, changed tiles and int8 residuals exact;
+rmsnorm 1e-5. chip_smoke.py runs the same checks at full-width shapes.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.box_iou.ops import (  # noqa: E402
+    box_iou,
+    box_iou_plain,
+    match_boxes,
+    nms_mask,
+)
 from repro_torch.kernels.cell_rasterize.ops import (  # noqa: E402
     cell_rasterize,
     cell_rasterize_plain,
@@ -22,9 +30,21 @@ from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
     crop_patchify_batch,
     crop_patchify_plain,
 )
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
+from repro_torch.kernels.frame_delta.ops import (  # noqa: E402
+    frame_delta,
+    frame_delta_plain,
+)
 from repro_torch.kernels.neighbor_score.ops import (  # noqa: E402
     neighbor_score_batch,
     neighbor_score_plain,
+)
+from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
+    rmsnorm,
+    rmsnorm_plain,
 )
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
@@ -94,3 +114,132 @@ def test_wrappers_reject_bad_input(cuda):
         cell_rasterize(*args[:4], args[4].double(), *args[5:])
     with pytest.raises(ValueError):
         cell_rasterize(args[0].t(), *args[1:])
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, q_offset, dtype)
+FLASH_CASES = [
+    (3, 197, 197, 6, 6, 32, False, 0, torch.float32),   # the ViT's layer
+    (2, 100, 100, 2, 1, 24, True, 0, torch.float32),    # ragged + MQA
+    (1, 1, 96, 4, 4, 16, False, 0, torch.float32),      # decode shape
+    (2, 72, 136, 4, 2, 48, False, 0, torch.float32),    # Sq != Sk, GQA
+    (1, 130, 130, 4, 4, 80, True, 0, torch.float32),    # stablelm's D
+    (1, 8, 40, 4, 2, 64, True, 32, torch.float32),      # q_offset
+    (1, 8, 8, 2, 2, 16, True, -4, torch.float32),       # masked rows -> 0
+    (1, 256, 256, 2, 2, 128, True, 0, torch.float32),
+    (2, 64, 64, 4, 2, 64, False, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c[:8]) for c in FLASH_CASES])
+def test_flash_attention_kernel_on_card(cuda, case):
+    b, sq, sk, hq, hkv, d, causal, q_offset, dtype = case
+    gen = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    _lib.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert _lib.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_rejects_bad_input(cuda):
+    q = torch.zeros(1, 4, 2, 144, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                        # D > 128
+    q = torch.zeros(1, 4, 2, 16, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                        q.transpose(1, 2))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (37, 13), (300, 517)])
+def test_box_iou_kernel_on_card(cuda, n, m):
+    gen = torch.Generator().manual_seed(n + m)
+    a = (torch.rand(n, 4, generator=gen) * 0.3 + 0.05).to(cuda)
+    b = (torch.rand(m, 4, generator=gen) * 0.3 + 0.05).to(cuda)
+    torch.testing.assert_close(box_iou(a, b), box_iou_plain(a, b),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_nms_and_matching_card_equals_cpu(cuda):
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(4):
+        boxes = torch.cat([0.3 + 0.4 * torch.rand(32, 2, generator=gen),
+                           0.05 + 0.2 * torch.rand(32, 2, generator=gen)], 1)
+        scores = torch.round(torch.rand(32, generator=gen) * 10) / 10
+        valid = torch.rand(32, generator=gen) < 0.8
+        cpu = nms_mask(boxes, scores, valid)
+        card = nms_mask(boxes.to(cuda), scores.to(cuda), valid.to(cuda))
+        assert torch.equal(card.cpu(), cpu)
+        gt = boxes.flip(0)[:20]
+        cpu = match_boxes(boxes, gt, valid[:20])
+        card = match_boxes(boxes.to(cuda), gt.to(cuda), valid[:20].to(cuda))
+        for c, g in zip(card, cpu):
+            assert torch.equal(c.cpu(), g)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,w,tile", [(64, 128, (16, 128)),
+                                      (100, 200, (16, 128)),
+                                      (37, 53, (8, 16))])
+def test_frame_delta_kernel_on_card(cuda, h, w, tile):
+    gen = torch.Generator().manual_seed(h)
+    cur = torch.rand(h, w, 3, generator=gen)
+    prev = cur.clone()
+    prev[: h // 2, : w // 2] = (prev[: h // 2, : w // 2] + 0.3).clamp(0, 1)
+    cur, prev = cur.to(cuda), prev.to(cuda)
+    th, tw = tile
+    dq, changed, _ = frame_delta(cur, prev, tile_h=th, tile_w=tw)
+    dq_p, changed_p = frame_delta_plain(cur, prev, tile_h=th, tile_w=tw)
+    assert torch.equal(changed, changed_p) and torch.equal(dq, dq_p)
+    assert 0 < int(changed.sum()) < changed.numel()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype", [((4, 16, 64), torch.float32),
+                                         ((7, 33), torch.float32),
+                                         ((3, 2560), torch.float32),
+                                         ((2, 100, 256), torch.bfloat16)])
+def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
+    gen = torch.Generator().manual_seed(shape[-1])
+    x = torch.randn(shape, generator=gen).to(cuda, dtype)
+    w = (torch.randn(shape[-1], generator=gen) + 1.0).to(cuda)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_plain(x, w),
+                               rtol=tol, atol=tol)
+
+
+EMPTY_CASES = {
+    "box_iou": lambda d: box_iou(torch.zeros(0, 4, device=d),
+                                 torch.zeros(5, 4, device=d)),
+    "flash_attention": lambda d: flash_attention(
+        *(torch.zeros(2, 0, 4, 32, device=d),) * 3),
+    "frame_delta": lambda d: frame_delta(torch.zeros(16, 128, 0, device=d),
+                                         torch.zeros(16, 128, 0, device=d)),
+    "rmsnorm": lambda d: rmsnorm(torch.zeros(0, 64, device=d),
+                                 torch.ones(64, device=d)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", sorted(EMPTY_CASES))
+def test_empty_input_launches_nothing(cuda, name):
+    """An empty input returns an empty result without a launch, so a
+    launch count always means a kernel ran."""
+    _lib.reset_launch_counts()
+    out = EMPTY_CASES[name](cuda)
+    assert _lib.launch_counts()[name] == 0
+    if name == "frame_delta":
+        assert out[0].numel() == 0 and int(out[1].abs().sum()) == 0
+    else:
+        assert out.numel() == 0
