@@ -6,7 +6,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
 
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/csrc with nvcc (one
-     process per source, all started together);
+     process per source, all started together) and count each kernel's
+     tensor-core instructions (HGMMA/HMMA) in the library's SASS;
   3. hold each kernel against its plain PyTorch version on the card —
      the three main-path kernels at the main path's shapes, then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -119,10 +121,16 @@ N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
 MAIN_PATH_KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify")
 # the card's published peaks (NVIDIA H100 SXM data sheet: HBM3 bandwidth,
-# float32 outside the tensor cores, dense bf16 on the tensor cores)
+# float32 outside the tensor cores, dense TF32 and bf16 on the tensor
+# cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 PEAK_BF16_PER_S = 989e12
+# float32 products on the tensor cores run in split TF32: three TF32
+# products for each float32 one (csrc/wgmma.cuh)
+SPLIT_TF32 = 3
+TENSOR_CORE_KERNELS = ("crop_patchify", "flash_attention")
 # stablelm-3b's attention (src/repro/configs/stablelm_3b.py: 32 heads of
 # 80 dims, MHA), batch 2 at a 4096-token context
 STABLELM_ATTN = dict(b=2, s=4096, h=32, d=80)
@@ -197,10 +205,44 @@ def check_close(name, got, want, atol, rtol=0.0):
 
 
 def bound(n_bytes: float, n_ops: float,
-          peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
+          peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str, str]:
+    """(least ms, "bytes" or "operations", the rate it was taken at)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "3.35 TB/s"
+    rate = {PEAK_FP32_PER_S: "FP32 67 TFLOP/s",
+            PEAK_TF32_PER_S: "3xTF32 at 495 TFLOP/s",
+            PEAK_BF16_PER_S: "bf16 989 TFLOP/s"}[peak_ops]
+    return t_ops, "operations", rate
+
+
+def split_tf32_bound(n_bytes: float, n_flop: float) -> tuple[float, str,
+                                                              str]:
+    """The bound of a float32 product run in split TF32: three TF32
+    operations for each float32 one, at the dense TF32 rate."""
+    return bound(n_bytes, SPLIT_TF32 * n_flop, PEAK_TF32_PER_S)
+
+
+def sass_mma_counts(path) -> dict:
+    """Tensor-core instructions (HGMMA, HMMA) per kernel in the built
+    library's SASS, by cuobjdump; {} where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1]
+            name = next((k for k in SOURCES if f"{k}_kernel" in fn), fn)
+            counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[name][op] += 1
+    return counts
 
 
 def main_path_inputs(dev):
@@ -295,9 +337,9 @@ def kernel_phase(dev) -> dict:
                          50),
         bound=bound(n_bytes, f * m * c * (25 + 6 * p)))
 
-    # crop_patchify: identical pixels, the 768-term token product summed
-    # in another order (explicit FMAs vs torch.matmul) -> 1e-4 absolute
-    # on tokens of order 1
+    # crop_patchify: identical pixels, the 768-term token product in split
+    # TF32 on the tensor cores (~2^-22 relative per term) against
+    # torch.matmul's float32 -> 1e-4 absolute on tokens of order 1
     got = (crop_patchify_batch(*cp_args, **cp_kw),)
     want = (crop_patchify_plain(*cp_args, **cp_kw),)
     torch.cuda.synchronize()
@@ -313,7 +355,7 @@ def kernel_phase(dev) -> dict:
         ms=cuda_ms(lambda: crop_patchify_batch(*cp_args, **cp_kw), 10),
         plain_ms=cuda_ms(lambda: crop_patchify_plain(*cp_args, **cp_kw),
                          5),
-        bound=bound(n_bytes, 2.0 * f * k * gg * depth * d))
+        bound=split_tf32_bound(n_bytes, 2.0 * f * k * gg * depth * d))
     for name, r in rows.items():
         print_row(name, r)
     return rows
@@ -323,7 +365,8 @@ def print_row(name: str, r: dict) -> None:
     lib = r.get("library_ms")
     print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
           f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-          f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) library_ms="
+          f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}, "
+          f"{r['bound'][2]}) library_ms="
           + ("null" if lib is None else f"{lib:.6f}"), flush=True)
 
 
@@ -347,8 +390,9 @@ def flash_case(dev, b, sq, sk, hq, hkv, d, *, causal=False, q_offset=0,
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    # float32: the online softmax sums in another order (3e-5 on outputs
-    # of order 1); bf16: one bf16 rounding of the output (2e-2)
+    # float32: split-TF32 products (~2^-22 relative per term) and the
+    # online softmax summed in another order (3e-5 on outputs of order
+    # 1); bf16: P and the output rounded to bf16 (2e-2)
     tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
     name = (f"flash_attention[{b}x{sq}x{hq}x{d} kv {sk}x{hkv} "
             f"causal={causal} q_offset={q_offset} {str(dtype)[6:]}]")
@@ -356,12 +400,13 @@ def flash_case(dev, b, sq, sk, hq, hkv, d, *, causal=False, q_offset=0,
     es = q.element_size()
     n_bytes = es * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)
     n_ops = 4.0 * b * hq * attn_pairs(sq, sk, causal, q_offset) * d
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    lim = (bound(n_bytes, n_ops, PEAK_BF16_PER_S) if dtype == torch.bfloat16
+           else split_tf32_bound(n_bytes, n_ops))
     row = dict(max_abs_err=float((got.float() - want.float()).abs().max()),
                ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), iters),
                plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                 plain_iters),
-               bound=bound(n_bytes, n_ops, peak), library_ms=None)
+               bound=lim, library_ms=None)
     del got, want
     if library:
         # PyTorch's own fused attention on the same inputs in [B, H, S, D]
@@ -730,6 +775,16 @@ def main() -> int:
     print(f"build: {_lib.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(_lib.build_log().strip(), flush=True)
+    mma = sass_mma_counts(_lib.library_path())
+    print(f"tensor-core instructions in the SASS (cuobjdump): "
+          f"{json.dumps(mma) if mma else 'not measured (no cuobjdump)'}",
+          flush=True)
+    if mma:
+        idle = [k for k in TENSOR_CORE_KERNELS
+                if not (mma.get(k, {}).get("HGMMA") or mma.get(k, {}).get(
+                    "HMMA"))]
+        if idle:
+            raise AssertionError(f"no tensor-core instructions in {idle}")
 
     rows = kernel_phase(dev)
     rows.update(new_kernel_phase(dev))

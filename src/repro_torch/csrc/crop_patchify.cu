@@ -13,68 +13,136 @@
 //
 // What bounds it on an H100: arithmetic. At the main path's shapes
 // (F*K = 1152 crops, 196 patches, p*p*3 = 768, D = 192) the product is
-// 66.6 GFLOP against ~175 MB of tokens written, ~1 ms at the card's
-// float32 (non-tensor-core) rate. The TPU kernel held the whole crop and
-// an [M, res, res] ownership cube in VMEM; at res = 224 one crop alone
-// (588 KB) exceeds a block's 227 KB of shared memory. So this design
-// never materializes a crop: it is a shared-memory-tiled GEMM
-// (64 patches x 64 features per block, 16-deep K tiles, 4 x 4 outputs
-// per thread) whose A tile is painted on the fly from packed ownership
-// masks — per (camera, window) one uint32 row mask and one column mask
-// per pixel line, built once per block, so a pixel's owner is
-// 31 - clz(rowbits & colbits). Pixels never reach device memory; only
-// the background-plus-noise plane (computed outside, shared by the
-// camera's K windows) and the weights are read. The geometry is compiled
-// without FMA contraction so pixel bounds and visibility round exactly
-// like the plain PyTorch version; the token product uses explicit FMAs.
-// Tensor cores (TF32 or bf16) and a pipelined load are later work.
+// 66.6 GFLOP against ~175 MB of tokens written. Plain TF32 keeps too few
+// bits for the 1e-4 tolerance, so the product runs in split TF32
+// (wgmma.cuh: three TF32 products per k-step), 200 GFLOP of tensor-core
+// work, ~0.40 ms at the dense TF32 rate.
+//
+// Design. The TPU kernel held a whole crop and an [M, res, res]
+// ownership cube in VMEM; at res = 224 one crop (588 KB) exceeds a
+// block's shared memory, so a crop is never materialized:
+// - Rows are the flattened [F*K*P] patch axis, cut in 128-row tiles (two
+//   warpgroups of 64). At the main path's shapes 225,792 rows are 1,764
+//   tiles exactly, where 64-row tiles cut per crop would pad 196 rows to
+//   256 (23% wasted work). A tile straddles crops, so it builds the
+//   ownership masks of every crop it touches (at most 128 / P + 2):
+//   per crop one uint32 row mask and one column mask per pixel line, so
+//   a pixel's owner is 31 - clz(rowbits & colbits).
+// - One block computes its rows against N tile = all D features (192;
+//   64 for D <= 64), so each pixel is painted once.
+// - A comes from registers: each thread paints exactly the pixels of
+//   its wgmma A fragment (2 rows x 4 k per k-step), splits them into
+//   TF32 hi and lo, and issues `wgmma m64nNk8` RS three times (hi.hi',
+//   hi.lo', lo.hi'). Painting step s + 1 overlaps the tensor cores on
+//   step s (two fragment register sets), and the plane values under a
+//   chunk's pixels are loaded into registers during the chunk before,
+//   so their latency never stalls the painting. A chunk's K columns are
+//   decoded once per block into a shared table (pixel row, column,
+//   channel, plane offset), not by every thread.
+// - B is the weight matrix split into hi and lo once by the wrapper
+//   (ops.tf32_split_weights) and laid out in the K-major core-matrix
+//   order wgmma reads, chunk by chunk, so a 64-deep K chunk of both
+//   halves is one contiguous block: cp.async streams it into a 2-stage
+//   ring while the previous chunk is multiplied.
+// Shared memory holds the ring and, per crop a tile touches, its masks;
+// crops so small that a 128-row tile spans dozens of them (res = 32 at
+// p = 16 with D > 64) do not fit and the launch is refused.
+// The geometry is compiled without FMA contraction so pixel bounds and
+// visibility round exactly like the plain PyTorch version.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kMaxObjects = 32;   // one uint32 ownership lane per object
 constexpr int kMaxRes = 1024;
-constexpr int kBM = 64;           // patches per block tile
-constexpr int kBN = 64;           // features per block tile
-constexpr int kBK = 16;           // reduction depth per stage
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);   // 256
+constexpr int kBM = 128;          // rows per block: two warpgroups of 64
+constexpr int kKC = 64;           // K depth of one ring stage
+constexpr int kStages = 2;
+constexpr int kThreads = 256;
+constexpr int kSmemLimit = 232448;
 
-__global__ void __launch_bounds__(kThreads) crop_patchify_kernel(
+// per crop of a tile: 5 int geometry arrays and 3 colours per object
+constexpr int kGeoBytes = kMaxObjects * (5 + 3) * 4;
+
+// per K column of two chunks: (plane offset, pixel row, pixel col,
+// channel) within the patch
+constexpr int kKTabBytes = 2 * kKC * 16;
+
+__host__ __device__ constexpr int ring_bytes(int nt) {
+  return kStages * 2 * nt * kKC * 4;
+}
+
+__host__ __device__ inline int crops_per_tile(int n_patch, int n_crops) {
+  const int c = (kBM - 1) / n_patch + 2;
+  return c < n_crops ? c : n_crops;
+}
+
+struct RowInfo {
+  int ci;           // crop within the tile; -1 past the last row
+  int prow, pcol;   // top-left pixel of the patch
+  const float* plane;
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ ow, const float* __restrict__ oh,
     const float* __restrict__ colors, const float* __restrict__ windows,
-    const float* __restrict__ bgn, const float* __restrict__ w,
+    const float* __restrict__ bgn, const float* __restrict__ wsplit,
     const float* __restrict__ bias, float* __restrict__ out, int n_obj,
     int n_win, int per_camera_windows, int res, int patch, int d_model,
-    float min_visible) {
-  __shared__ uint32_t s_rowbits[kMaxRes];
-  __shared__ uint32_t s_colbits[kMaxRes];
-  __shared__ int s_px0[kMaxObjects], s_px1[kMaxObjects];
-  __shared__ int s_py0[kMaxObjects], s_py1[kMaxObjects];
-  __shared__ int s_keep[kMaxObjects];
-  __shared__ float s_color[kMaxObjects * 3];
-  __shared__ float s_a[kBK][kBM];
-  __shared__ float s_w[kBK][kBN];
+    float min_visible, int n_crops, int n_cmax, int n_chunks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_ring = reinterpret_cast<float*>(smem);
+  int4* s_ktab = reinterpret_cast<int4*>(smem + ring_bytes(NT));
+  int* s_geo = reinterpret_cast<int*>(smem + ring_bytes(NT) + kKTabBytes);
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(
+      smem + ring_bytes(NT) + kKTabBytes + n_cmax * kGeoBytes);
 
-  const int crop = blockIdx.x;            // f * n_win + k
-  const int f = crop / n_win;
   const int tid = threadIdx.x;
   const int g = res / patch;
   const int n_patch = g * g;
   const int depth = patch * patch * 3;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.z * kBN;
+  const int p3 = patch * 3;
+  const long long n_rows = static_cast<long long>(n_crops) * n_patch;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int c_first = static_cast<int>(row0 / n_patch);
+  const int ntile = blockIdx.y;
 
-  // ---- object geometry for this (camera, window) ----------------------
-  const float* win =
-      windows + (per_camera_windows ? crop : crop % n_win) * 4;
-  const float x0 = win[0], y0 = win[1], fw = win[2], fh = win[3];
-  if (tid < n_obj) {
-    const int i = f * n_obj + tid;
+  // ---- B chunk loader: 2 * NT * kKC floats, contiguous ---------------
+  const float* wtile = wsplit + static_cast<size_t>(ntile) * n_chunks * 2 *
+                                    NT * kKC;
+  auto load_chunk = [&](int c) {
+    const float* src = wtile + static_cast<size_t>(c) * 2 * NT * kKC;
+    float* dst = s_ring + (c % kStages) * 2 * NT * kKC;
+    for (int i = tid * 4; i < 2 * NT * kKC; i += kThreads * 4) {
+      tc::cp_async16(dst + i, src + i);
+    }
+  };
+  load_chunk(0);
+  tc::cp_async_commit();
+
+  // ---- object geometry of every crop the tile touches ----------------
+  int* s_px0 = s_geo;
+  int* s_px1 = s_px0 + n_cmax * kMaxObjects;
+  int* s_py0 = s_px1 + n_cmax * kMaxObjects;
+  int* s_py1 = s_py0 + n_cmax * kMaxObjects;
+  int* s_keep = s_py1 + n_cmax * kMaxObjects;
+  float* s_color = reinterpret_cast<float*>(s_keep + n_cmax * kMaxObjects);
+  for (int idx = tid; idx < n_cmax * n_obj; idx += kThreads) {
+    const int ci = idx / n_obj;
+    const int m = idx - ci * n_obj;
+    const int crop = c_first + ci;
+    if (crop >= n_crops) continue;
+    const int f = crop / n_win;
+    const int slot = ci * kMaxObjects + m;
+    const float* win =
+        windows + (per_camera_windows ? crop : crop % n_win) * 4;
+    const float x0 = win[0], y0 = win[1], fw = win[2], fh = win[3];
+    const int i = f * n_obj + m;
     const float ox0 = ox[i] - ow[i] / 2.0f;
     const float ox1 = ox[i] + ow[i] / 2.0f;
     const float oy0 = oy[i] - oh[i] / 2.0f;
@@ -85,117 +153,260 @@ __global__ void __launch_bounds__(kThreads) crop_patchify_kernel(
     const float iy1 = fminf(oy1, y0 + fh);
     const float inter = fmaxf(ix1 - ix0, 0.0f) * fmaxf(iy1 - iy0, 0.0f);
     const float box = (ox1 - ox0) * (oy1 - oy0);
-    s_keep[tid] = (inter / fmaxf(box, 1e-9f)) >= min_visible;
+    s_keep[slot] = (inter / fmaxf(box, 1e-9f)) >= min_visible;
     const float r = static_cast<float>(res);
     const float top = static_cast<float>(res - 1);
     // clip first, then truncate (all values non-negative)
-    s_px0[tid] = static_cast<int>(fminf(fmaxf((ix0 - x0) / fw * r, 0.0f),
-                                        top));
-    s_px1[tid] = static_cast<int>(
+    s_px0[slot] = static_cast<int>(fminf(fmaxf((ix0 - x0) / fw * r, 0.0f),
+                                         top));
+    s_px1[slot] = static_cast<int>(
         fminf(fmaxf((ix1 - x0) / fw * r + 1.0f, 1.0f), r));
-    s_py0[tid] = static_cast<int>(fminf(fmaxf((iy0 - y0) / fh * r, 0.0f),
-                                        top));
-    s_py1[tid] = static_cast<int>(
+    s_py0[slot] = static_cast<int>(fminf(fmaxf((iy0 - y0) / fh * r, 0.0f),
+                                         top));
+    s_py1[slot] = static_cast<int>(
         fminf(fmaxf((iy1 - y0) / fh * r + 1.0f, 1.0f), r));
     for (int ch = 0; ch < 3; ++ch) {
-      s_color[tid * 3 + ch] = colors[i * 3 + ch];
+      s_color[slot * 3 + ch] = colors[i * 3 + ch];
     }
   }
   __syncthreads();
-  for (int t = tid; t < res; t += kThreads) {
+  for (int idx = tid; idx < n_cmax * res; idx += kThreads) {
+    const int ci = idx / res;
+    const int t = idx - ci * res;
     uint32_t rb = 0u, cb = 0u;
-    for (int m = 0; m < n_obj; ++m) {
-      if (!s_keep[m]) continue;
-      if (t >= s_py0[m] && t < s_py1[m]) rb |= 1u << m;
-      if (t >= s_px0[m] && t < s_px1[m]) cb |= 1u << m;
+    if (c_first + ci < n_crops) {
+      for (int m = 0; m < n_obj; ++m) {
+        const int slot = ci * kMaxObjects + m;
+        if (!s_keep[slot]) continue;
+        if (t >= s_py0[slot] && t < s_py1[slot]) rb |= 1u << m;
+        if (t >= s_px0[slot] && t < s_px1[slot]) cb |= 1u << m;
+      }
     }
-    s_rowbits[t] = rb;
-    s_colbits[t] = cb;
+    s_bits[(ci * 2) * res + t] = rb;
+    s_bits[(ci * 2 + 1) * res + t] = cb;
   }
   __syncthreads();
 
-  // ---- tiled product: tokens[m0:m0+BM, n0:n0+BN] ----------------------
-  const float* plane = bgn + static_cast<size_t>(f) * res * res * 3;
-  const int ty = tid / (kBN / kTN);
-  const int tx = tid % (kBN / kTN);
-  float acc[kTM][kTN];
-  for (int i = 0; i < kTM; ++i)
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < depth; k0 += kBK) {
-    for (int idx = tid; idx < kBK * kBM; idx += kThreads) {
-      const int i = idx % kBM;             // patch within the tile
-      const int kq = idx / kBM;
-      const int p = m0 + i;
-      const int k = k0 + kq;
-      float v = 0.0f;
-      if (p < n_patch && k < depth) {
-        const int kr = k / (patch * 3);
-        const int rem = k - kr * patch * 3;
-        const int kc = rem / 3;
-        const int ch = rem - kc * 3;
-        const int row = (p / g) * patch + kr;
-        const int col = (p % g) * patch + kc;
-        const uint32_t bits = s_rowbits[row] & s_colbits[col];
-        v = bits ? s_color[(31 - __clz(bits)) * 3 + ch]
-                 : plane[(row * res + col) * 3 + ch];
-        v = fminf(fmaxf(v, 0.0f), 1.0f);
-      }
-      s_a[kq][i] = v;
+  // ---- this thread's two A-fragment rows -----------------------------
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int wrow = (warp / 4) * 64 + (warp % 4) * 16 + gq;
+  RowInfo rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = row0 + wrow + 8 * h;
+    rows[h].ci = -1;
+    rows[h].prow = rows[h].pcol = 0;
+    rows[h].plane = bgn;
+    if (r < n_rows) {
+      const int crop = static_cast<int>(r / n_patch);
+      const int pidx = static_cast<int>(r - static_cast<long long>(crop) *
+                                                n_patch);
+      rows[h].ci = crop - c_first;
+      rows[h].prow = (pidx / g) * patch;
+      rows[h].pcol = (pidx % g) * patch;
+      rows[h].plane = bgn + static_cast<size_t>(crop / n_win) * res * res * 3;
     }
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int j = idx % kBN;
-      const int kq = idx / kBN;
-      const int k = k0 + kq;
-      const int n = n0 + j;
-      s_w[kq][j] = (k < depth && n < d_model) ? w[k * d_model + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kq = 0; kq < kBK; ++kq) {
-      float a[kTM], bw[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = s_a[kq][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bw[j] = s_w[kq][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j)
-          acc[i][j] = __fmaf_rn(a[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
-  float* dst = out + static_cast<size_t>(crop) * n_patch * d_model;
-  for (int i = 0; i < kTM; ++i) {
-    const int p = m0 + ty * kTM + i;
-    if (p >= n_patch) continue;
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx * kTN + j;
-      if (n < d_model) dst[p * d_model + n] = acc[i][j] + bias[n];
+  // K columns of chunk c -> table half c % 2 (pixel row -1 past the
+  // depth), written by the first kKC threads
+  auto fill_ktab = [&](int c) {
+    if (tid < kKC) {
+      const int k = c * kKC + tid;
+      int4 e = make_int4(0, -1, 0, 0);
+      if (k < depth) {
+        const int kr = k / p3;
+        const int rem = k - kr * p3;
+        const int kc = rem / 3;
+        e = make_int4((kr * res + kc) * 3 + rem - kc * 3, kr, kc,
+                      rem - kc * 3);
+      }
+      s_ktab[(c % 2) * kKC + tid] = e;
+    }
+  };
+  // per fragment row: its crop's row and column masks, colours and plane
+  // at the patch's top-left pixel
+  const uint32_t* rmask[2];
+  const uint32_t* cmask[2];
+  const float* rcolor[2];
+  const float* rplane[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ci = rows[h].ci < 0 ? 0 : rows[h].ci;
+    rmask[h] = s_bits + (ci * 2) * res + rows[h].prow;
+    cmask[h] = s_bits + (ci * 2 + 1) * res + rows[h].pcol;
+    rcolor[h] = s_color + ci * kMaxObjects * 3;
+    rplane[h] = rows[h].plane + (rows[h].prow * res + rows[h].pcol) * 3;
+  }
+  // the background-plus-noise plane under the fragment's pixels of chunk
+  // c, loaded one chunk ahead so the loads' latency hides behind a
+  // chunk of tensor-core work
+  constexpr int kSteps = kKC / 8;
+  float plane_cur[kSteps][2][2], plane_nxt[kSteps][2][2];
+  auto load_plane = [&](int c, float (&dst)[kSteps][2][2]) {
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int4 e = s_ktab[(c % 2) * kKC + s * 8 + tq + 4 * j];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dst[s][j][h] = (rows[h].ci < 0 || e.y < 0)
+                             ? 0.0f : __ldg(rplane[h] + e.x);
+        }
+      }
+    }
+  };
+  // the pixel: the owner's colour where an object paints it, else the
+  // plane, clipped to [0, 1]
+  auto paint = [&](int h, const int4& e, float plane) -> float {
+    if (rows[h].ci < 0 || e.y < 0) return 0.0f;
+    const uint32_t bits = rmask[h][e.y] & cmask[h][e.z];
+    const float v = bits ? rcolor[h][(31 - __clz(bits)) * 3 + e.w] : plane;
+    return fminf(fmaxf(v, 0.0f), 1.0f);
+  };
+  fill_ktab(0);
+  __syncthreads();
+  load_plane(0, plane_cur);
+
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+  uint32_t a_frag[2][2][4];   // [register set][hi, lo][fragment]
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // the previous chunk's products are done in both warpgroups, so its
+    // stage may be refilled with chunk c + 1
+    tc::wait<0>();
+    tc::fence_regs(acc);
+    __syncthreads();
+    if (c + 1 < n_chunks) load_chunk(c + 1);
+    tc::cp_async_commit();
+    if (c + 1 < n_chunks) fill_ktab(c + 1);
+    tc::cp_async_wait<1>();
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    const float* stage = s_ring + (c % kStages) * 2 * NT * kKC;
+    if (c + 1 < n_chunks) load_plane(c + 1, plane_nxt);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      if (s >= 2) tc::wait<1>();     // frees register set s % 2
+      uint32_t(&a)[2][4] = a_frag[s % 2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int4 e = s_ktab[(c % 2) * kKC + s * 8 + tq + 4 * j];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // fragment order: (row, k t), (row + 8, k t), (row, k t + 4),
+          // (row + 8, k t + 4)
+          tc::tf32_split(paint(h, e, plane_cur[s][j][h]), a[0][2 * j + h],
+                         a[1][2 * j + h]);
+        }
+      }
+      tc::fence_regs(a[0]);
+      tc::fence_regs(a[1]);
+      tc::fence();
+      const uint64_t b_hi = tc::desc(stage + s * 64, 128, 128 * (kKC / 4));
+      const uint64_t b_lo =
+          tc::desc(stage + NT * kKC + s * 64, 128, 128 * (kKC / 4));
+      tc::Wgmma<true, true, NT>::mma(acc, a[1], b_hi, 1);
+      tc::Wgmma<true, true, NT>::mma(acc, a[0], b_lo, 1);
+      tc::Wgmma<true, true, NT>::mma(acc, a[0], b_hi, 1);
+      tc::commit();
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) plane_cur[s][j][h] = plane_nxt[s][j][h];
+  }
+  tc::wait<0>();
+  tc::fence_regs(acc);
+
+  // ---- epilogue: + bias, straight from the accumulator ---------------
+  const int n0 = ntile * NT;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = row0 + wrow + 8 * h;
+    if (r >= n_rows) continue;
+    float* dst = out + static_cast<size_t>(r) * d_model;
+#pragma unroll
+    for (int q = 0; q < NT / 8; ++q) {
+      const int col = n0 + 8 * q + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e < d_model) {
+          dst[col + e] = acc[4 * q + 2 * h + e] + bias[col + e];
+        }
+      }
     }
   }
 }
 
+template <int NT>
+cudaError_t launch_tiles(const float* ox, const float* oy, const float* ow,
+                         const float* oh, const float* colors,
+                         const float* windows, const float* bgn,
+                         const float* wsplit, const float* bias, float* out,
+                         int n_crops, int n_obj, int n_win,
+                         int per_camera_windows, int res, int patch,
+                         int d_model, float min_visible,
+                         cudaStream_t stream) {
+  const int g = res / patch;
+  const int n_patch = g * g;
+  const int n_cmax = crops_per_tile(n_patch, n_crops);
+  const size_t smem = ring_bytes(NT) + kKTabBytes +
+                      static_cast<size_t>(n_cmax) * (kGeoBytes + 8 * res);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  // set on every launch: the attribute is per device
+  const cudaError_t err = cudaFuncSetAttribute(
+      crop_patchify_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long n_rows = static_cast<long long>(n_crops) * n_patch;
+  const long long tiles = (n_rows + kBM - 1) / kBM;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int depth = patch * patch * 3;
+  const dim3 grid(static_cast<unsigned>(tiles), (d_model + NT - 1) / NT);
+  crop_patchify_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      ox, oy, ow, oh, colors, windows, bgn, wsplit, bias, out, n_obj, n_win,
+      per_camera_windows, res, patch, d_model, min_visible, n_crops, n_cmax,
+      (depth + kKC - 1) / kKC);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// `w` is the weight matrix as ops.tf32_split_weights lays it out for
+// N tile NT (64 when D <= 64, else 192): [D tiles][K chunks of 64][hi,
+// lo][NT / 8][8 cores along K][8 rows][4], zero past D and p*p*3.
 REPRO_EXTERN int crop_patchify_launch(
     const float* ox, const float* oy, const float* ow, const float* oh,
     const float* colors, const float* windows, const float* bgn,
     const float* w, const float* bias, float* out, int n_cam, int n_obj,
     int n_win, int per_camera_windows, int res, int patch, int d_model,
     float min_visible, void* stream) {
-  if (n_obj > kMaxObjects || n_obj > kThreads || res > kMaxRes ||
-      patch <= 0 || res % patch != 0) {
+  if (n_obj > kMaxObjects || res > kMaxRes || patch <= 0 ||
+      res % patch != 0 || d_model < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_cam == 0 || n_win == 0) return 0;
-  const int g = res / patch;
-  const dim3 grid(n_cam * n_win, (g * g + kBM - 1) / kBM,
-                  (d_model + kBN - 1) / kBN);
-  crop_patchify_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(
-      ox, oy, ow, oh, colors, windows, bgn, w, bias, out, n_obj, n_win,
-      per_camera_windows, res, patch, d_model, min_visible);
-  return static_cast<int>(cudaGetLastError());
+  const long long n_crops = static_cast<long long>(n_cam) * n_win;
+  if (n_crops > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      d_model <= 64
+          ? launch_tiles<64>(ox, oy, ow, oh, colors, windows, bgn, w, bias,
+                             out, static_cast<int>(n_crops), n_obj, n_win,
+                             per_camera_windows, res, patch, d_model,
+                             min_visible, as_stream(stream))
+          : launch_tiles<192>(ox, oy, ow, oh, colors, windows, bgn, w, bias,
+                              out, static_cast<int>(n_crops), n_obj, n_win,
+                              per_camera_windows, res, patch, d_model,
+                              min_visible, as_stream(stream));
+  return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-// Tiled online-softmax attention (flash attention), BSHD layout, GQA.
+// Tiled online-softmax attention (flash attention), BSHD layout, GQA, on
+// the H100's tensor cores.
 //
 // Replaces the TPU kernel `flash_attention_bhsd` (body `_flash_kernel`)
 // in src/repro/kernels/flash_attention/flash_attention.py, together with
@@ -6,77 +7,167 @@
 // GQA `repeat` of K/V, padding S to blocks and D to 128 lanes).
 //
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (Hq % Hkv == 0, D <= 128),
-// float32 or bfloat16 in, float32 math, output [B, Sq, Hq, D] in q's
+// float32 or bfloat16 in, float32 softmax, output [B, Sq, Hq, D] in q's
 // type:
 //   s[i, j] = (q_i . k_j) * scale, masked to -inf where j >= Sk or, with
 //   `causal`, where j > i + q_offset; out_i = softmax_j(s) . v, and 0 for
 //   a row with no unmasked key.
 //
 // What bounds it on an H100: arithmetic. At the ViT detector's shapes
-// (B = 1152 crops, S = 197, H = 6, D = 32) one layer is 34 GFLOP against
-// 0.7 GB of q/k/v/out, ~0.5 ms at the card's float32 (non-tensor-core)
-// rate, while the plain version writes and reads 1.07 GB of f32 logits
-// per layer. This design never writes a logit: one block per
-// (batch, query head, 64-query tile); K/V tiles of 32 keys are staged in
-// shared memory (converted to f32, zero beyond Sk and D) and streamed
-// past the queries; each query row is held by LANES = 1, 2 or 4 threads,
-// each owning DT of its padded head dims (in float4 chunks interleaved
-// across the lanes, so the lanes of a row read neighbouring shared words
-// and the rows of a warp read the same ones: no bank conflicts), with
-// its running max, denominator and accumulator in registers. Partial
-// dot products are summed across the lanes with warp shuffles. K/V heads
-// are indexed as h / (Hq / Hkv), so GQA never copies K/V; ragged S and D
-// are bounds checks, not padding passes. Causal tiles wholly above the
-// diagonal are never loaded (the TPU kernel's block skip). The library
-// is built with -fmad=false; the two products use explicit FMAs.
-// Tensor cores (wgmma, bf16/TF32) and a pipelined TMA load are later
-// work.
+// (B = 1152 crops, S = 197, H = 6, D = 32) one layer is 34 GFLOP of
+// products against 0.7 GB of q/k/v/out; float32 inputs take split TF32
+// (wgmma.cuh), three TF32 products each, ~0.21 ms at the dense TF32
+// rate, while plain TF32 would break the 3e-5 tolerance.
+//
+// Design. One block is two warpgroups (256 threads) and owns a (batch,
+// query head, 128-query tile); each warpgroup computes 64 of the rows
+// and both share each K/V tile's load and split. No logit is written to
+// device memory.
+// - Q is read once and written to shared memory as TF32 hi and lo
+//   halves (bf16: as it is), in the K-major core-matrix layout wgmma
+//   reads; its loads overlap the first K/V tile's.
+// - K/V tiles of BC keys (64; 32 in float32 below D = 64 and where 64
+//   would not fit) arrive by cp.async
+//   into a staging buffer while the block works on the previous tile,
+//   then are split into hi and lo and written in wgmma's layout: K as
+//   [keys, D], V transposed to [D, keys], whole core matrices per warp.
+//   Head dims pad with zeros in shared memory only, to a multiple of the
+//   MMA depth (8 for TF32, 16 for bf16); ragged S is masked.
+// - S = Q.K^T is `wgmma m64nBCk8` SS, three per k-step (lo.hi', hi.lo',
+//   hi.hi'); bf16 takes one `m64nBCk16` per step.
+// - Online softmax in registers, in base 2 (exp2f): each thread holds 2
+//   rows x BC/4 logits of the accumulator, row maxima meet in two
+//   shuffles.
+// - O += P.V is `wgmma m64nDk8` RS: P is split in registers and fed as
+//   the A fragment. The accumulator holds keys (2t, 2t + 1) of each
+//   8-key group where a TF32 A fragment wants keys (t, t + 4), so V's
+//   keys are stored permuted within each group of 8 (key k at position
+//   (k & 1) * 4 + k / 2), which leaves the sum over keys unchanged.
+//   bf16 rounds P to bf16 (FlashAttention-2) and needs no permutation.
+// K/V heads are indexed as h / (Hq / Hkv), so GQA never copies K/V.
+// Causal tiles wholly above the diagonal are never loaded (the TPU
+// kernel's block skip).
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;      // query rows per block
-constexpr int kBK = 32;      // keys per shared-memory tile
 constexpr int kMaxD = 128;
 
-template <typename T, int LANES, int DT>
-__global__ void __launch_bounds__(kBQ * LANES) flash_attention_kernel(
+template <typename T, int DP>
+struct Cfg {
+  static constexpr bool kTf32 = sizeof(T) == 4;
+  // two warpgroups of 64 query rows share each K/V tile's load and split
+  static constexpr int WG = 2;
+  static constexpr int BQ = 64 * WG;             // query rows per block
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int NH = kTf32 ? 2 : 1;        // hi, lo halves
+  using E = typename std::conditional<kTf32, uint32_t, __nv_bfloat16>::type;
+  static constexpr int SP = DP + 16 / sizeof(T);  // staging row stride
+  static constexpr int kSmem64 =                  // bytes at 64 keys
+      NH * (BQ * DP + 2 * 64 * DP) * sizeof(E) + 2 * 64 * SP * sizeof(T);
+  // keys per tile: 64, except float32 below D = 64 (where the last tile
+  // of a short sequence wastes less and more blocks fit an SM) or where
+  // 64 would not fit a block's shared memory
+  static constexpr int BC = !kTf32 || (DP >= 64 && kSmem64 <= 232448) ? 64
+                                                                      : 32;
+  static constexpr int EPC = kTf32 ? 4 : 8;       // values per core row
+  static constexpr int KSTEP = 2 * EPC;           // MMA depth
+  static constexpr int kQ = NH * BQ * DP;         // elements of E
+  static constexpr int kK = NH * BC * DP;
+  static constexpr int kV = NH * DP * BC;
+  // staging rows are padded by 16 bytes, so the reads of one core
+  // matrix's 8 rows fall in distinct banks
+  static constexpr int kStage = 2 * BC * SP;      // elements of T
+  static constexpr int kSmem = (kQ + kK + kV) * sizeof(E) +
+                               kStage * sizeof(T);
+};
+
+// element i of a K-major tile with `kx` values along K, in wgmma's order
+// (core matrices of 8 rows x EPC values, K fastest) -> (row, k); one
+// thread per 16-byte core row, so 8 consecutive threads write a whole
+// core matrix, conflict-free
+template <int EPC>
+__device__ __forceinline__ void core_pos(int i, int kx, int& row, int& k) {
+  const int core = i / (8 * EPC);
+  const int w = i - core * (8 * EPC);
+  row = (core / (kx / EPC)) * 8 + w / EPC;
+  k = (core % (kx / EPC)) * EPC + w % EPC;
+}
+
+// one core-matrix row: EPC values, 16 bytes of E per half
+template <int EPC>
+__device__ __forceinline__ void put_row(uint32_t* hi, uint32_t* lo, int i,
+                                        const float (&x)[EPC]) {
+  uint4 h, l;
+  tc::tf32_split(x[0], h.x, l.x);
+  tc::tf32_split(x[1], h.y, l.y);
+  tc::tf32_split(x[2], h.z, l.z);
+  tc::tf32_split(x[3], h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + i) = h;
+  *reinterpret_cast<uint4*>(lo + i) = l;
+}
+template <int EPC>
+__device__ __forceinline__ void put_row(__nv_bfloat16* hi, __nv_bfloat16*,
+                                        int i, const float (&x)[EPC]) {
+  union {
+    uint4 u;
+    __nv_bfloat16 b[8];
+  } r;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) r.b[e] = __float2bfloat16(x[e]);   // exact
+  *reinterpret_cast<uint4*>(hi + i) = r.u;
+}
+
+// 16 bytes of T from shared or global memory, as float
+template <typename T, int EPC>
+__device__ __forceinline__ void load_row(const T* p, float (&x)[EPC]) {
+  union {
+    uint4 u;
+    T t[EPC];
+  } r;
+  r.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < EPC; ++e) x[e] = to_f32(r.t[e]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a -> low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads)
+flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int sq, int sk, int hq,
-    int hkv, int d, float scale, int causal, int q_offset, int n_qtiles) {
-  constexpr int DP = DT * LANES;     // padded head dim held by one row
-  constexpr int NC = DT / 4;         // float4 chunks per lane
-  __shared__ __align__(16) float s_k[kBK][DP];
-  __shared__ __align__(16) float s_v[kBK][DP];
+    int hkv, int d, float scale, int causal, int q_offset, int n_qtiles,
+    int vec16) {
+  using C = Cfg<T, DP>;
+  using E = typename C::E;
+  constexpr int BC = C::BC;
+  constexpr int EPC = C::EPC;
+  constexpr int SP = C::SP;
+  constexpr int kBQ = C::BQ;
+  constexpr int kThreads = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  E* s_q = reinterpret_cast<E*>(smem);           // [NH][kBQ x DP]
+  E* s_k = s_q + C::kQ;                          // [NH][BC x DP]
+  E* s_v = s_k + C::kK;                          // [NH][DP x BC]
+  T* s_stage = reinterpret_cast<T*>(s_v + C::kV);   // [K, V][BC][SP]
 
   const int tile = blockIdx.x % n_qtiles;
   const int bh = blockIdx.x / n_qtiles;
   const int b = bh / hq;
   const int h = bh % hq;
   const int hk = h / (hq / hkv);
-  const int lane = threadIdx.x % LANES;
+  const int tid = threadIdx.x;
   const int q0 = tile * kBQ;
-  const int row = q0 + threadIdx.x / LANES;
-  const bool row_ok = row < sq;
-  const int qpos = row + q_offset;
-
-  // this thread's dims: chunk c = i * LANES + lane holds dims 4c .. 4c+3
-  float qr[DT];
-  float acc[DT];
-  const T* qrow = q + ((static_cast<size_t>(b) * sq + row) * hq + h) * d;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int dim = (i * LANES + lane) * 4 + c;
-      qr[i * 4 + c] = (row_ok && dim < d) ? to_f32(qrow[dim]) : 0.0f;
-      acc[i * 4 + c] = 0.0f;
-    }
-  }
-  float m = -INFINITY;
-  float l = 0.0f;
 
   int k_end = sk;
   if (causal) {
@@ -84,115 +175,303 @@ __global__ void __launch_bounds__(kBQ * LANES) flash_attention_kernel(
     k_end = min(sk, max(last + 1, 0));
   }
   const size_t kv_base = static_cast<size_t>(b) * sk * hkv + hk;
-  for (int kt = 0; kt < k_end; kt += kBK) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBK * DP; idx += blockDim.x) {
-      const int j = idx / DP;
-      const int dim = idx - j * DP;
-      const int key = kt + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (key < sk && dim < d) {
-        const size_t off = (kv_base + static_cast<size_t>(key) * hkv) * d
-                           + dim;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      s_k[j][dim] = kx;
-      s_v[j][dim] = vx;
-    }
-    __syncthreads();
 
-    float s[kBK];
-    float m_cur = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(s_k[j]);
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const float4 kk = kr[i * LANES + lane];
-        part = __fmaf_rn(qr[i * 4 + 0], kk.x, part);
-        part = __fmaf_rn(qr[i * 4 + 1], kk.y, part);
-        part = __fmaf_rn(qr[i * 4 + 2], kk.z, part);
-        part = __fmaf_rn(qr[i * 4 + 3], kk.w, part);
+  // raw K/V rows of the tile at key kt into the staging buffer
+  auto stage_tile = [&](int kt) {
+    if (vec16) {
+      constexpr int kPer = 16 / sizeof(T);
+      const int chunks = d / kPer;
+      for (int idx = tid; idx < 2 * BC * chunks; idx += kThreads) {
+        const int which = idx / (BC * chunks);
+        const int rem = idx - which * BC * chunks;
+        const int j = rem / chunks;
+        const int c = rem - j * chunks;
+        if (kt + j >= sk) continue;
+        const size_t off =
+            (kv_base + static_cast<size_t>(kt + j) * hkv) * d + c * kPer;
+        tc::cp_async16(s_stage + (which * BC + j) * SP + c * kPer,
+                       (which ? v : k) + off);
       }
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1) {
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      }
-      const int key = kt + j;
-      const bool ok = key < sk && (!causal || key <= qpos);
-      s[j] = ok ? part * scale : -INFINITY;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
-    const float alpha = m == -INFINITY ? 0.0f : expf(m - m_safe);
-#pragma unroll
-    for (int i = 0; i < DT; ++i) acc[i] *= alpha;
-    float p_sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = s[j] == -INFINITY ? 0.0f : expf(s[j] - m_safe);
-      p_sum += p;
-      const float4* vr = reinterpret_cast<const float4*>(s_v[j]);
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const float4 vv = vr[i * LANES + lane];
-        acc[i * 4 + 0] = __fmaf_rn(p, vv.x, acc[i * 4 + 0]);
-        acc[i * 4 + 1] = __fmaf_rn(p, vv.y, acc[i * 4 + 1]);
-        acc[i * 4 + 2] = __fmaf_rn(p, vv.z, acc[i * 4 + 2]);
-        acc[i * 4 + 3] = __fmaf_rn(p, vv.w, acc[i * 4 + 3]);
+    } else {
+      for (int idx = tid; idx < 2 * BC * d; idx += kThreads) {
+        const int which = idx / (BC * d);
+        const int rem = idx - which * BC * d;
+        const int j = rem / d;
+        const int dim = rem - j * d;
+        if (kt + j >= sk) continue;
+        const size_t off =
+            (kv_base + static_cast<size_t>(kt + j) * hkv) * d + dim;
+        s_stage[(which * BC + j) * SP + dim] = (which ? v : k)[off];
       }
     }
-    l = alpha * l + p_sum;
-    m = m_new;
+    tc::cp_async_commit();
+  };
+
+  if (k_end > 0) stage_tile(0);
+  // Q tile in wgmma's layout, zero past Sq and D (its loads overlap the
+  // first K/V tile's cp.async)
+  const size_t q_base = (static_cast<size_t>(b) * sq + q0) * hq + h;
+#pragma unroll 4
+  for (int u = tid; u < kBQ * DP / EPC; u += kThreads) {
+    int r, k0;
+    core_pos<EPC>(u * EPC, DP, r, k0);             // one core row each
+    float x[EPC];
+    if (q0 + r < sq) {
+      const T* src = q + (q_base + static_cast<size_t>(r) * hq) * d + k0;
+      if (vec16 && k0 + EPC <= d) {
+        load_row<T, EPC>(src, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) {
+          x[e] = k0 + e < d ? to_f32(src[e]) : 0.0f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) x[e] = 0.0f;
+    }
+    put_row<EPC>(s_q, s_q + kBQ * DP, u * EPC, x);
   }
 
-  if (!row_ok) return;
-  const float denom = l > 0.0f ? l : 1.0f;
-  T* orow = out + ((static_cast<size_t>(b) * sq + row) * hq + h) * d;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int wg = warp / 4;                       // this warpgroup's rows
+  const int rloc = wg * 64 + (warp % 4) * 16 + gq;   // rloc, rloc + 8
+  int qpos[2];
+  qpos[0] = q0 + rloc + q_offset;
+  qpos[1] = qpos[0] + 8;
+
+  float o_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
+  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.0f;
+  float s_acc[BC / 2];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int dim = (i * LANES + lane) * 4 + c;
-      if (dim < d) store(orow + dim, acc[i * 4 + c] / denom);
+  for (int i = 0; i < BC / 2; ++i) s_acc[i] = 0.0f;
+  // logits in base 2: exp(x) = exp2(x log2(e)), one MUFU.EX2 each
+  const float scale_log2 = scale * 1.4426950408889634f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  // keys this warpgroup needs: none past Sq, causal ones up to its last row
+  int wg_end = q0 + wg * 64 < sq ? sk : 0;
+  if (causal && wg_end > 0) {
+    const int last = min(q0 + wg * 64 + 64, sq) - 1 + q_offset;
+    wg_end = min(sk, max(last + 1, 0));
+  }
+  float l_run[2] = {0.0f, 0.0f};   // this thread's share of the row sum
+
+  for (int kt = 0; kt < k_end; kt += BC) {
+    // staging holds this tile; every warp is done with the last tile
+    tc::cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 2
+    for (int u = tid; u < BC * DP / EPC; u += kThreads) {
+      int j, k0;
+      core_pos<EPC>(u * EPC, DP, j, k0);         // K as [keys, D]
+      float x[EPC];
+      load_row<T, EPC>(s_stage + j * SP + k0, x);
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) {
+        if (kt + j >= sk || k0 + e >= d) x[e] = 0.0f;
+      }
+      put_row<EPC>(s_k, s_k + BC * DP, u * EPC, x);
+    }
+#pragma unroll 2
+    for (int u = tid; u < DP * BC / EPC; u += kThreads) {
+      int dim, p0;
+      core_pos<EPC>(u * EPC, BC, dim, p0);       // V as [D, keys]
+      float x[EPC];
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) {
+        // TF32: position p of each 8-key group holds key 2 (p % 4) + p / 4
+        const int pos = p0 + e;
+        const int key = C::kTf32 ? (pos & ~7) | ((pos & 3) << 1) |
+                                       ((pos >> 2) & 1)
+                                 : pos;
+        x[e] = kt + key < sk && dim < d
+                   ? to_f32(s_stage[(BC + key) * SP + dim]) : 0.0f;
+      }
+      put_row<EPC>(s_v, s_v + DP * BC, u * EPC, x);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (kt + BC < k_end) stage_tile(kt + BC);
+    if (kt >= wg_end) continue;     // uniform across the warpgroup
+
+    // ---- S = Q.K^T ----------------------------------------------------
+    tc::fence_regs(s_acc);
+    tc::fence();
+#pragma unroll
+    for (int s = 0; s < DP / C::KSTEP; ++s) {
+      const uint64_t qh = tc::desc(s_q + wg * 64 * DP + s * 2 * 8 * EPC,
+                                   128, 128 * (DP / EPC));
+      const uint64_t kh = tc::desc(s_k + s * 2 * 8 * EPC, 128,
+                                   128 * (DP / EPC));
+      if constexpr (C::kTf32) {
+        const uint64_t ql = tc::desc(s_q + (kBQ + wg * 64) * DP + s * 64,
+                                     128, 128 * (DP / EPC));
+        const uint64_t kl = tc::desc(s_k + BC * DP + s * 64, 128,
+                                     128 * (DP / EPC));
+        tc::Wgmma<true, false, BC>::mma(s_acc, ql, kh, s > 0);
+        tc::Wgmma<true, false, BC>::mma(s_acc, qh, kl, 1);
+        tc::Wgmma<true, false, BC>::mma(s_acc, qh, kh, 1);
+      } else {
+        tc::Wgmma<false, false, BC>::mma(s_acc, qh, kh, s > 0);
+      }
+    }
+    tc::commit();
+    tc::wait<0>();
+    tc::fence_regs(s_acc);
+
+    // ---- online softmax over this tile -------------------------------
+    float m_new[2], m_safe[2], alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) m_new[hh] = m_run[hh];
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) {
+      const int hh = (i / 2) % 2;
+      const int key = kt + 8 * (i / 4) + 2 * tq + i % 2;
+      const bool ok = key < sk && (!causal || key <= qpos[hh]);
+      s_acc[i] = ok ? s_acc[i] * scale_log2 : -INFINITY;
+      m_new[hh] = fmaxf(m_new[hh], s_acc[i]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m_new[hh] = fmaxf(m_new[hh],
+                        __shfl_xor_sync(0xffffffffu, m_new[hh], 1));
+      m_new[hh] = fmaxf(m_new[hh],
+                        __shfl_xor_sync(0xffffffffu, m_new[hh], 2));
+      m_safe[hh] = m_new[hh] == -INFINITY ? 0.0f : m_new[hh];
+      alpha[hh] =
+          m_run[hh] == -INFINITY ? 0.0f : exp2f(m_run[hh] - m_safe[hh]);
+      m_run[hh] = m_new[hh];
+      l_run[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) {
+      const int hh = (i / 2) % 2;
+      const float p =
+          s_acc[i] == -INFINITY ? 0.0f : exp2f(s_acc[i] - m_safe[hh]);
+      l_run[hh] += p;
+      s_acc[i] = p;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+
+    // ---- O += P.V ------------------------------------------------------
+    constexpr int NSTEP = BC / C::KSTEP;
+    uint32_t p_hi[NSTEP][4], p_lo[NSTEP][4];
+#pragma unroll
+    for (int j = 0; j < NSTEP; ++j) {
+      if constexpr (C::kTf32) {
+        // fragment (row, key t), (row + 8, t), (row, t + 4), (row + 8,
+        // t + 4) <- accumulator keys 2t, 2t, 2t + 1, 2t + 1
+        const int ord[4] = {0, 2, 1, 3};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tc::tf32_split(s_acc[4 * j + ord[e]], p_hi[j][e], p_lo[j][e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p_hi[j][e] = pack_bf16(s_acc[8 * j + 2 * e],
+                                 s_acc[8 * j + 2 * e + 1]);
+        }
+      }
+      tc::fence_regs(p_hi[j]);
+      if constexpr (C::kTf32) tc::fence_regs(p_lo[j]);
+    }
+    tc::fence_regs(o_acc);
+    tc::fence();
+#pragma unroll
+    for (int j = 0; j < NSTEP; ++j) {
+      const uint64_t vh = tc::desc(s_v + j * 2 * 8 * EPC, 128,
+                                   128 * (BC / EPC));
+      if constexpr (C::kTf32) {
+        const uint64_t vl = tc::desc(s_v + DP * BC + j * 64, 128,
+                                     128 * (BC / EPC));
+        tc::Wgmma<true, true, DP>::mma(o_acc, p_lo[j], vh, 1);
+        tc::Wgmma<true, true, DP>::mma(o_acc, p_hi[j], vl, 1);
+        tc::Wgmma<true, true, DP>::mma(o_acc, p_hi[j], vh, 1);
+      } else {
+        tc::Wgmma<false, true, DP>::mma(o_acc, p_hi[j], vh, 1);
+      }
+    }
+    tc::commit();
+    tc::wait<0>();
+    tc::fence_regs(o_acc);
+  }
+
+  // ---- epilogue ----------------------------------------------------------
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + rloc + 8 * hh;
+    if (row >= sq) continue;
+    const float denom = l_run[hh] > 0.0f ? l_run[hh] : 1.0f;
+    T* orow = out + ((static_cast<size_t>(b) * sq + row) * hq + h) * d;
+#pragma unroll
+    for (int qd = 0; qd < DP / 8; ++qd) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int dim = 8 * qd + 2 * tq + e;
+        if (dim < d) store(orow + dim, o_acc[4 * qd + 2 * hh + e] / denom);
+      }
     }
   }
 }
 
-template <typename T, int LANES, int DT>
+template <typename T, int DP>
 cudaError_t launch_one(const void* q, const void* k, const void* v,
                        void* out, int batch, int sq, int sk, int hq,
                        int hkv, int d, float scale, int causal,
                        int q_offset, cudaStream_t stream) {
-  const int n_qtiles = (sq + kBQ - 1) / kBQ;
+  using C = Cfg<T, DP>;
+  constexpr int kSmem = C::kSmem;
+  // set on every launch: the attribute is per device
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (sq + C::BQ - 1) / C::BQ;
   const long long blocks = static_cast<long long>(batch) * hq * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attention_kernel<T, LANES, DT>
-      <<<static_cast<unsigned>(blocks), kBQ * LANES, 0, stream>>>(
+  // 16-byte cp.async needs 16-byte aligned rows and bases
+  const int vec16 = (d * sizeof(T)) % 16 == 0 &&
+                                    (reinterpret_cast<uintptr_t>(k) % 16) == 0 &&
+                    (reinterpret_cast<uintptr_t>(v) % 16) == 0;
+  flash_attention_kernel<T, DP>
+      <<<static_cast<unsigned>(blocks), C::kThreads, kSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hq, hkv,
-          d, scale, causal, q_offset, n_qtiles);
+          d, scale, causal, q_offset, n_qtiles, vec16);
   return cudaGetLastError();
 }
 
-// The narrowest (LANES, DT) whose padded width DT * LANES covers D.
+// The narrowest padded head dim DP >= D with an instance: a multiple of
+// the MMA depth (8 for TF32, 16 for bf16).
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      void* out, int batch, int sq, int sk, int hq, int hkv,
                      int d, float scale, int causal, int q_offset,
                      cudaStream_t stream) {
-#define REPRO_FLASH(LANES, DT)                                             \
-  return launch_one<T, LANES, DT>(q, k, v, out, batch, sq, sk, hq, hkv, d, \
-                                  scale, causal, q_offset, stream)
-  if (d <= 16) REPRO_FLASH(1, 16);
-  if (d <= 32) REPRO_FLASH(1, 32);
-  if (d <= 48) REPRO_FLASH(2, 24);
-  if (d <= 64) REPRO_FLASH(2, 32);
-  if (d <= 96) REPRO_FLASH(4, 24);
-  REPRO_FLASH(4, 32);
+#define REPRO_FLASH(DP)                                                   \
+  return launch_one<T, DP>(q, k, v, out, batch, sq, sk, hq, hkv, d, scale, \
+                           causal, q_offset, stream)
+  if (d <= 16) REPRO_FLASH(16);
+  if constexpr (sizeof(T) == 4) {
+    if (d <= 24) REPRO_FLASH(24);
+  }
+  if (d <= 32) REPRO_FLASH(32);
+  if (d <= 48) REPRO_FLASH(48);
+  if (d <= 64) REPRO_FLASH(64);
+  if (d <= 80) REPRO_FLASH(80);
+  if (d <= 96) REPRO_FLASH(96);
+  REPRO_FLASH(128);
 #undef REPRO_FLASH
 }
 

@@ -12,7 +12,8 @@ module import, so the CPU tests import freely).
 `-fmad=false` keeps nvcc from contracting `a*b + c` into an FMA: the
 geometry (visibility cuts, pixel bounds) must round exactly like the
 plain PyTorch versions, which run multiply and add as separate ops. The
-token product asks for its FMAs explicitly (`__fmaf_rn`). IEEE division
+products ask for their FMAs explicitly (`__fmaf_rn`) or run on the
+tensor cores (`wgmma`, which the flag does not touch). IEEE division
 and square root stay on (no fast math).
 
 Each wrapper counts its launches in `LAUNCHES`, so a run can show that
@@ -88,9 +89,13 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
+    """The build's path, named by a hash of the flags and of every source
+    and header under csrc/ (an edited header must not load a stale
+    build)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + ("common.cuh",):
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
@@ -136,6 +141,12 @@ def build() -> Path:
 
 
 def build_log() -> str:
+    """The compiler's output (registers, spills) of this build: kept
+    beside the library, so a build made by an earlier process reports
+    it too."""
+    saved = library_path().with_suffix(".log")
+    if not _state["log"] and saved.exists():
+        _state["log"] = saved.read_text()
     return _state["log"]
 
 

@@ -18,6 +18,44 @@ from repro_torch.kernels import _lib
 from repro_torch.scene.render import object_colors, render_background
 
 MAX_OBJECTS = 32        # object slots per uint32 ownership lane
+K_CHUNK = 64            # the kernel's K depth per ring stage
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as the card's cvt.rna.tf32.f32 gives it, for finite x."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo (to ~2^-22 relative) with hi = tf32(x) and
+    lo = tf32(x - hi): the operands of the kernel's split-TF32 product."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def n_tile(d: int) -> int:
+    """The kernel's feature tile: all D features in one block (64 for
+    D <= 64, else 192 per tile)."""
+    return 64 if d <= 64 else 192
+
+
+def tf32_split_weights(wflat: torch.Tensor) -> torch.Tensor:
+    """[p*p*3, D] weights -> hi and lo halves in the order the kernel's
+    wgmma reads them: [D tiles][K chunks][hi, lo][NT/8][K_CHUNK/4][8][4],
+    K-major 8 x 4 core matrices, zero past D and p*p*3 (csrc/
+    crop_patchify.cu streams one K chunk of both halves as one block)."""
+    depth, d = wflat.shape
+    nt = n_tile(d)
+    n_dt = -(-d // nt)
+    n_kc = -(-depth // K_CHUNK)
+    wt = torch.zeros((n_dt * nt, n_kc * K_CHUNK), dtype=torch.float32,
+                     device=wflat.device)
+    wt[:d, :depth] = wflat.t()
+    halves = torch.stack(tf32_split(wt))              # [2, N, K]
+    return halves.reshape(2, n_dt, nt // 8, 8, n_kc, K_CHUNK // 4,
+                          4).permute(1, 4, 0, 2, 5, 3, 6).contiguous()
 
 
 def render_crops_plain(ox, oy, ow, oh, colors, windows, bgn, *, res: int,
@@ -123,6 +161,10 @@ def crop_patchify_batch(ox, oy, ow, oh, colors, windows, bgn, wflat,
     g = res // patch
     out = torch.empty((f, k, g * g, d), dtype=torch.float32,
                       device=ox.device)
+    if out.numel() == 0:
+        return out
+    wsplit = tf32_split_weights(wflat)
+    ins = ins[:7] + (wsplit, bias)
     _lib.launch("crop_patchify", ox.device, *(t.data_ptr() for t in ins),
                 out.data_ptr(), f, m, k, int(per_camera), res, patch, d,
                 float(min_visible))

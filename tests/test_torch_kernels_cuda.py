@@ -6,15 +6,18 @@ mode). Imports no JAX, so it runs where the card is:
 
 Tolerances: counts exact; neighbor scores, areas and moments 1e-5
 (float32 sums in another order); patch tokens 1e-4 absolute on values of
-order 1 (the token product's FMAs vs torch.matmul); attention 3e-5 in
-float32 (online softmax, sums in another order) and 2e-2 in bfloat16;
+order 1 (the token product in split TF32 on the tensor cores vs
+torch.matmul); attention 3e-5 in float32 (split-TF32 products, online
+softmax, sums in another order) and 2e-2 in bfloat16;
 IoU 1e-6; NMS masks, matches, changed tiles and int8 residuals exact;
 rmsnorm 1e-5. chip_smoke.py runs the same checks at full-width shapes.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import DEFAULT_GRID  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
     box_iou,
@@ -25,6 +28,7 @@ from repro_torch.kernels.box_iou.ops import (  # noqa: E402
 from repro_torch.kernels.cell_rasterize.ops import (  # noqa: E402
     cell_rasterize,
     cell_rasterize_plain,
+    window_arrays,
 )
 from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
     crop_patchify_batch,
@@ -107,6 +111,53 @@ def test_crop_patchify_kernel_on_card(cuda, shared):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
+def patchify_args(cuda, f, k, res, d, n_obj, shared, seed):
+    """Seeded crop_patchify inputs with `n_obj` object slots (the last two
+    disabled) and F x K windows of the default grid, on the card."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform([0, 0], [150, 75], (f, n_obj, 2)).astype(np.float32)
+    size = rng.uniform(1.5, 12.0, (f, n_obj, 2)).astype(np.float32)
+    size[:, -2:] = 0.0
+    kind = (np.arange(n_obj) >= n_obj // 2).astype(np.int64)
+    oid = rng.integers(0, 4000, (f, n_obj))
+    wins_all = window_arrays(DEFAULT_GRID)
+    wins = (wins_all[:k] if shared else wins_all[np.stack(
+        [rng.choice(wins_all.shape[0], k, replace=False) for _ in range(f)])])
+    w = rng.normal(0, 1 / np.sqrt(768), (768, d)).astype(np.float32)
+    b = rng.normal(0, 0.01, d).astype(np.float32)
+    noise = (0.05 * rng.normal(0, 1, (f, res, res, 3))).astype(np.float32)
+    pos, size = t(pos).to(cuda), t(size).to(cuda)
+    strips = [x.contiguous() for x in (pos[..., 0], pos[..., 1],
+                                       size[..., 0], size[..., 1])]
+    colors = object_colors(t(kind).to(cuda), t(oid).to(cuda)).contiguous()
+    bgn = (render_background(res, cuda)[None] + t(noise).to(cuda))
+    return (*strips, colors, t(wins).to(cuda), bgn.contiguous(),
+            t(w).to(cuda), t(b).to(cuda))
+
+
+# (F, K, res, D, shared): 224 px with F*K*196 not a multiple of the
+# kernel's 128-row tile, and 64 px where one tile spans up to 9 crops
+PATCHIFY_CASES = [(3, 5, 224, 192, False), (3, 5, 224, 192, True),
+                  (4, 6, 64, 48, False), (4, 6, 64, 48, True),
+                  (5, 7, 64, 192, False),
+                  (2, 3, 64, 200, True)]       # two feature tiles
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", PATCHIFY_CASES,
+                         ids=[str(c) for c in PATCHIFY_CASES])
+def test_crop_patchify_row_tiles_on_card(cuda, case):
+    """The kernel's row tiles straddle crops and end ragged; 32 objects
+    fill every ownership lane."""
+    f, k, res, d, shared = case
+    args = patchify_args(cuda, f, k, res, d, 32, shared, seed=res + f)
+    _lib.reset_launch_counts()
+    got = crop_patchify_batch(*args, res=res, patch=16, min_visible=0.25)
+    assert _lib.launch_counts()["crop_patchify"] == 1
+    want = crop_patchify_plain(*args, res=res, patch=16, min_visible=0.25)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.requires_cuda
 def test_wrappers_reject_bad_input(cuda):
     args = [t(x).to(cuda) for x in rasterize_inputs(2, 2, 0)]
@@ -127,7 +178,14 @@ FLASH_CASES = [
     (1, 8, 8, 2, 2, 16, True, -4, torch.float32),       # masked rows -> 0
     (1, 256, 256, 2, 2, 128, True, 0, torch.float32),
     (2, 64, 64, 4, 2, 64, False, 0, torch.bfloat16),
-]
+    (2, 197, 197, 3, 3, 32, False, 0, torch.bfloat16),  # ViT S in bf16
+    (1, 300, 300, 4, 2, 64, True, 37, torch.float32),   # several key tiles
+    (1, 300, 300, 4, 2, 80, True, 37, torch.bfloat16),
+    (1, 70, 70, 2, 1, 18, True, 0, torch.float32),      # rows not 16-byte
+    (1, 70, 90, 2, 1, 20, False, 0, torch.bfloat16),    # multiples
+] + [(1 + (dt == torch.float32), 150, 150, 4, 2, d, True, 0, dt)
+     for d in (16, 24, 32, 48, 64, 80, 96, 128)           # every head dim
+     for dt in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.requires_cuda
