@@ -9,20 +9,30 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      process per source, all started together) and count each kernel's
      tensor-core instructions (HGMMA/HMMA) in the library's SASS;
   3. hold each kernel against its plain PyTorch version on the card —
-     the three main-path kernels at the main path's shapes, then
+     neighbor_score (the kernel API the shape search used to launch),
+     cell_rasterize and crop_patchify at the main path's shapes, then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
      with q_offset, bf16), box_iou, nms_mask/match_boxes (card vs CPU),
      frame_delta and rmsnorm at full-size shapes — and time each with
      CUDA events beside its bound and, where one PyTorch call computes
-     the same function, that call;
+     the same function, that call; kernels whose device time is below a
+     Python call's dispatch time also get a device-only time (a CUDA
+     graph of the calls, replayed);
   4. check the port end to end on a small input: run_fleet on the card
      and on the CPU (plain versions) must make the same decisions;
   5. drive the main path once — run_fleet(provider="detector") at the
      full width of madeye-approx, 64 cameras, 8 steps, shortlist_k=18 —
      with the launch counters set to 0 just before and read just after;
-     each of the three main-path kernels must have launched (and no
-     other: run_fleet runs the reference's plain attention), and the
-     result must be well formed;
+     each of the four main-path kernels (shape_search, budget_walk,
+     cell_rasterize, crop_patchify) must have launched, and no other
+     (run_fleet runs the reference's plain attention, and the shape
+     search scores its candidates inside shape_search); the result must
+     be well formed. The inputs and outputs of every shape_search and
+     budget_walk call of the episode are recorded, and the plain
+     versions must make the same decisions on each, and on seeded
+     random states at the same shapes; both kernels are timed on the
+     last step's inputs (and, printed only, on random states at larger
+     fleets and grids);
   6. drive the ViT flash path: the main path's own crop_patchify tokens
      (64 cameras x 18 crops) through vit_features_tokens(impl="flash")
      with the counters set to 0 just before — flash_attention must launch
@@ -53,13 +63,14 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import DEFAULT_GRID  # noqa: E402
+from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
 from repro_torch.fleet.api import (  # noqa: E402
     FleetRunSpec,
     prepare_fleet_run,
     run_fleet,
 )
-from repro_torch.fleet.state import fleet_statics  # noqa: E402
+from repro_torch.fleet.state import fleet_config, fleet_statics  # noqa: E402
+from repro_torch.fleet import step as step_module  # noqa: E402
 from repro_torch.fleet.step import FleetObs, fleet_step  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
@@ -93,6 +104,12 @@ from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
     rmsnorm,
     rmsnorm_plain,
 )
+from repro_torch.kernels.shape_search.ops import (  # noqa: E402
+    budget_walk_batch,
+    budget_walk_plain,
+    shape_search_batch,
+    shape_search_plain,
+)
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
     head_outputs,
@@ -119,7 +136,8 @@ from repro_torch.scene.scene import (  # noqa: E402
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
-MAIN_PATH_KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify")
+MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "cell_rasterize",
+                     "crop_patchify")
 # the card's published peaks (NVIDIA H100 SXM data sheet: HBM3 bandwidth,
 # float32 outside the tensor cores, dense TF32 and bf16 on the tensor
 # cores)
@@ -139,6 +157,15 @@ FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
 SOURCES = {
+    # the shape search's loops fused around the neighbor score; the TPU
+    # kernel it replaces on the main path is neighbor_score's
+    "shape_search": (
+        "src/repro_torch/csrc/shape_search.cu",
+        "src/repro/kernels/neighbor_score/neighbor_score.py:47"),
+    # the reference's shrink-to-budget is an XLA while loop, no Pallas
+    "budget_walk": (
+        "src/repro_torch/csrc/shape_search.cu",
+        "src/repro/fleet/step.py:207"),
     "neighbor_score": (
         "src/repro_torch/csrc/neighbor_score.cu",
         "src/repro/kernels/neighbor_score/neighbor_score.py:47"),
@@ -182,6 +209,31 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of fn() per call with no host cost between calls: one
+    CUDA graph of `iters` back-to-back calls, captured after a warm-up
+    and replayed once warm, timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -313,6 +365,7 @@ def kernel_phase(dev) -> dict:
     rows["neighbor_score"] = dict(
         max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: neighbor_score_batch(*ns_args), 200),
+        graph_ms=graph_ms(lambda: neighbor_score_batch(*ns_args), 200),
         plain_ms=cuda_ms(lambda: neighbor_score_plain(*ns_args), 200),
         bound=bound(n_bytes, 12 * b * n * n))
 
@@ -333,6 +386,7 @@ def kernel_phase(dev) -> dict:
     rows["cell_rasterize"] = dict(
         max_abs_err=max_err(got[1:], want[1:]),
         ms=cuda_ms(lambda: cell_rasterize(*cr_args, **cr_kw), 200),
+        graph_ms=graph_ms(lambda: cell_rasterize(*cr_args, **cr_kw), 200),
         plain_ms=cuda_ms(lambda: cell_rasterize_plain(*cr_args, **cr_kw),
                          50),
         bound=bound(n_bytes, f * m * c * (25 + 6 * p)))
@@ -363,8 +417,9 @@ def kernel_phase(dev) -> dict:
 
 def print_row(name: str, r: dict) -> None:
     lib = r.get("library_ms")
+    graph = (f" graph_ms={r['graph_ms']:.6f}" if "graph_ms" in r else "")
     print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
-          f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+          f"ms={r['ms']:.6f}{graph} plain_ms={r['plain_ms']:.6f} "
           f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}, "
           f"{r['bound'][2]}) library_ms="
           + ("null" if lib is None else f"{lib:.6f}"), flush=True)
@@ -555,12 +610,51 @@ def small_parity_phase() -> None:
           f"frames_sent {on_card.frames_sent})", flush=True)
 
 
+class SearchRecorder:
+    """While active, records the arguments and results of every
+    shape_search and budget_walk call that fleet_step makes (clones, by
+    wrapping the names fleet/step.py calls). The wrapped call is the
+    wrapper itself, launched once as always."""
+
+    NAMES = ("shape_search_batch", "budget_walk_batch")
+
+    def __init__(self):
+        self.calls = {name: [] for name in self.NAMES}
+
+    def _wrap(self, name, fn):
+        def recorded(cfg, statics, *args):
+            out = fn(cfg, statics, *args)
+            self.calls[name].append((cfg, statics, _clone(args),
+                                     _clone(out)))
+            return out
+        return recorded
+
+    def __enter__(self):
+        self.saved = {n: getattr(step_module, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(step_module, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(step_module, name, fn)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
 def main_path_phase(spec: FleetRunSpec):
     """Drive run_fleet once at the main path's cell; return (result,
-    launch counts of that run)."""
+    launch counts of that run, the recorded shape-search calls)."""
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
-    result = run_fleet(spec)
+    with SearchRecorder() as rec:
+        result = run_fleet(spec)
     counts = _lib.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -592,7 +686,122 @@ def main_path_phase(spec: FleetRunSpec):
           f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
           f"peak_mem_gib={peak:.2f} launches={counts} "
           f"(over {N_STEPS} steps + 1 warm-up step)", flush=True)
-    return result, counts
+    return result, counts, rec.calls
+
+
+def search_phase(calls) -> dict:
+    """shape_search and budget_walk against their plain versions on the
+    inputs of every step of the main-path episode: masks, walk orders and
+    counts exactly equal, the walk time within 1e-6 relative (its hop sum
+    in another order). Both timed on the last step's inputs (ms: Python
+    calls; graph_ms: a CUDA graph of the calls). Returns their rows."""
+    rows = {}
+    plains = {"shape_search_batch": shape_search_plain,
+              "budget_walk_batch": budget_walk_plain}
+    wrappers = {"shape_search_batch": shape_search_batch,
+                "budget_walk_batch": budget_walk_batch}
+    for name, recorded in calls.items():
+        kernel = name[:-len("_batch")]
+        if len(recorded) != N_STEPS + 1:
+            raise AssertionError(f"{kernel}: {len(recorded)} calls recorded, "
+                                 f"want {N_STEPS + 1}")
+        err = 0.0
+        for step, (cfg, statics, args, got) in enumerate(recorded):
+            want = plains[name](cfg, statics, *args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g.dtype == torch.float32:
+                    check_close(f"{kernel} step {step} t", (g,), (w,),
+                                atol=0.0, rtol=1e-6)
+                    err = max(err, float((g - w).abs().max()))
+                elif not torch.equal(g, w):
+                    bad = (g != w).reshape(g.shape[0], -1).any(1)
+                    cams = torch.nonzero(bad).flatten().tolist()
+                    raise AssertionError(
+                        f"{kernel} step {step} output {i}: cameras {cams} "
+                        f"decide otherwise than the plain version")
+        cfg, statics, args, _ = recorded[-1]
+        f, n = args[0].shape
+        if kernel == "shape_search":
+            n_bytes = (f * n * (1 + 4 + 8 + 1 + 1) + 8 * f + 9 * n * n
+                       + 8 * n)
+        else:
+            n_bytes = f * n * (1 + 4 + 1 + 8) + 24 * f + 14 * n * n
+
+        def run(fn=wrappers[name]):
+            return fn(cfg, statics, *args)
+
+        rows[kernel] = dict(
+            max_abs_err=err, ms=cuda_ms(run, 200), graph_ms=graph_ms(run, 200),
+            plain_ms=cuda_ms(lambda: plains[name](cfg, statics, *args), 3),
+            # a search that may stop at its first test needs no fixed
+            # count of operations: the bound is the bytes
+            bound=bound(n_bytes, 0.0), library_ms=None)
+        print(f"{kernel}: kernel and plain decide alike on all "
+              f"{len(recorded)} steps of the episode", flush=True)
+        print_row(kernel, rows[kernel])
+    return rows
+
+
+def random_search_args(dev, grid, f: int, seed: int):
+    """Seeded search states with ties: scattered shapes of up to half the
+    grid (the head/tail loop, structural tails, shrinking), labels in
+    quarters (many zeros), budgets that fit nothing, everything or in
+    between. -> (cfg, statics, shape_search args, budget_walk args)."""
+    gen = torch.Generator().manual_seed(seed)
+    n = grid.n_cells
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    shape = rand(f, n) < 0.5 * rand(f, 1)
+    labels = torch.floor(4 * rand(f, n)) / 4
+    has = rand(f, n) < 0.6
+    cent = (torch.as_tensor(grid.centers, dtype=torch.float32)[None]
+            + 12.0 * (rand(f, n, 2) - 0.5))
+    max_cells = torch.randint(0, n + 3, (f,), generator=gen)
+    start = torch.randint(0, n, (f,), generator=gen)
+    budget = 0.6 * rand(f)
+    budget[::5] = 0.0
+    budget[1::5] = 1e3
+    ss = [x.to(dev) for x in (shape, labels, cent, has, max_cells)]
+    bw = [ss[0], start.to(dev), ss[1], budget.to(dev), 0.0]
+    return fleet_config(grid), fleet_statics(grid, dev), ss, bw
+
+
+def random_search_phase(dev) -> None:
+    """shape_search and budget_walk against their plain versions on
+    seeded states at the main path's shapes (64 cameras, 25 cells):
+    decisions exactly equal, the walk time within 1e-6 relative. Then
+    their device times (CUDA graph) at larger fleets and grids."""
+    for seed in range(3):
+        cfg, st, ss, bw = random_search_args(dev, DEFAULT_GRID, N_CAMERAS,
+                                             seed)
+        pairs = ((shape_search_batch(cfg, st, *ss),
+                  shape_search_plain(cfg, st, *ss)),
+                 *zip(budget_walk_batch(cfg, st, *bw),
+                      budget_walk_plain(cfg, st, *bw)))
+        for i, (got, want) in enumerate(pairs):
+            if got.dtype == torch.float32:
+                check_close(f"random state {seed} t", (got,), (want,),
+                            atol=0.0, rtol=1e-6)
+            elif not torch.equal(got, want):
+                raise AssertionError(f"random state {seed} output {i}: "
+                                     f"kernel and plain decide otherwise")
+    print("shape_search, budget_walk: kernel and plain decide alike on 3 "
+          f"random states of {N_CAMERAS} cameras x 25 cells", flush=True)
+    big = OrientationGrid(pan_step=9.375, tilt_step=9.375)     # 16 x 8
+    times = []
+    for grid in (DEFAULT_GRID, big):
+        for f in (N_CAMERAS, 1024):
+            cfg, st, ss, bw = random_search_args(dev, grid, f, 7)
+            ss_ms = graph_ms(lambda: shape_search_batch(cfg, st, *ss), 20)
+            bw_ms = graph_ms(lambda: budget_walk_batch(cfg, st, *bw), 20)
+            times.append(f"F={f} N={grid.n_cells}: shape_search "
+                         f"{ss_ms:.4f} budget_walk {bw_ms:.4f}")
+    print("search kernels on random states, graph_ms per call: "
+          + "; ".join(times), flush=True)
 
 
 def vit_flash_phase(spec: FleetRunSpec):
@@ -793,7 +1002,9 @@ def main() -> int:
         provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
         shortlist_k=SHORTLIST_K,
         provider_kwargs={"det_cfg": get_config("madeye-approx")})
-    _, counts = main_path_phase(spec)
+    _, counts, calls = main_path_phase(spec)
+    rows.update(search_phase(calls))
+    random_search_phase(dev)
     vit_row, dets = vit_flash_phase(spec)
     counts["flash_attention"] = vit_row["launches"]
     api_counts = kernel_api_phase(dev, dets)
@@ -809,7 +1020,8 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r.get("library_ms")})
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

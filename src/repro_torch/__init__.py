@@ -3,10 +3,10 @@
 A second package beside the JAX reference (`repro`): the same camera-side
 loop — scene advance, oracle pass, search-coupled shortlist, fused
 crop->token rasterization, one ViT-detector forward, controller step —
-as eager PyTorch over a [F, ...] fleet axis, with the three hot kernels
-(`neighbor_score`, `cell_rasterize`, `crop_patchify`) hand-written in
-CUDA C++ for Hopper (`csrc/`, built with nvcc at first use and loaded
-through ctypes).
+as eager PyTorch over a [F, ...] fleet axis, with the hot kernels
+(`shape_search` and `budget_walk` for the controller's search,
+`cell_rasterize`, `crop_patchify`) hand-written in CUDA C++ for Hopper
+(`csrc/`, built with nvcc at first use and loaded through ctypes).
 
     from repro_torch.fleet import FleetRunSpec, run_fleet
     result = run_fleet(FleetRunSpec(provider="detector", n_cameras=64))

@@ -1,5 +1,6 @@
 """Offline path geometry (paper §3.3): the full-grid MST the online
-preorder walk (fleet/step._walk) restricts to each shape."""
+preorder walk (the budget_walk kernel and its plain version
+kernels/shape_search/ops.walk) restricts to each shape."""
 from __future__ import annotations
 
 import numpy as np

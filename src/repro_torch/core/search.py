@@ -1,5 +1,6 @@
 """Head/tail shape-search constants and the rectangular seed (paper §3.3),
-numpy host side. The batched search itself is fleet/shape_ops.py."""
+numpy host side. The batched search itself is kernels/shape_search (its
+plain loops and the shape_search kernel)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

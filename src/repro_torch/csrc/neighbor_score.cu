@@ -8,17 +8,16 @@
 //                 1e-6) / sum_o w,   w = overlap[c, o] * member_has[b, o]
 // and 1.0 where sum_o w == 0.
 //
-// What bounds it on an H100: launch latency. At the main path's shapes
-// (B = 64 cameras, N = 25 cells) one call reads ~13 KB and does ~0.4
-// MFLOP — nanoseconds of bandwidth or arithmetic against a launch of a
-// few microseconds — and the shape loops call it dozens of times per
-// controller step. The design therefore keeps each call to ONE launch
-// with no padding or masking passes around it (the TPU version padded to
-// 128 lanes): one block per camera, one thread per cell, the camera's
-// [N] strips staged in shared memory and the static [N, N] geometry read
-// from L2. The sum over members runs in index order. Taking the launches
-// themselves away (a CUDA graph over the shape loop) is later work.
+// What bounds it on an H100: launch latency. At B = 64 cameras and N =
+// 25 cells one call reads ~13 KB and does ~0.4 MFLOP — nanoseconds of
+// bandwidth or arithmetic against a launch of a few microseconds. One
+// block per camera, one thread per cell, the camera's [N] strips staged
+// in shared memory and the static [N, N] geometry read from L2. The
+// formula is neighbor_score.cuh's, which the fused shape_search kernel
+// (shape_search.cu) evaluates inline: the controller step no longer
+// launches this kernel, which stays as the kernel API.
 #include "common.cuh"
+#include "neighbor_score.cuh"
 
 namespace {
 
@@ -40,21 +39,8 @@ __global__ void neighbor_score_kernel(
   }
   __syncthreads();
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const float gx = cell_x[c];
-    const float gy = cell_y[c];
-    float total = 0.0f;
-    float total_w = 0.0f;
-    for (int o = 0; o < n; ++o) {
-      const float w = overlap[c * n + o] * s_mh[o];
-      const float dx = gx - s_cx[o];
-      const float dy = gy - s_cy[o];
-      const float d_box = sqrtf(dx * dx + dy * dy);
-      const float ratio = d_center[c * n + o] / fmaxf(d_box, 1e-6f);
-      total += w * ratio;
-      total_w += w;
-    }
-    out[b * n + c] =
-        total_w > 0.0f ? total / fmaxf(total_w, 1e-9f) : 1.0f;
+    out[b * n + c] = neighbor_score_at(c, n, s_mh, s_cx, s_cy, d_center,
+                                       overlap, cell_x[c], cell_y[c]);
   }
 }
 

@@ -1,105 +1,26 @@
-"""Masked, fixed-shape fleet shape search (paper §3.3).
+"""Fleet shape search (paper §3.3): the rectangular seed, and the
+search's masked loops.
 
-Every function operates on the whole fleet batch at once: masks are
-[F, N] bool, per-camera scalars are [F]. The search's data-dependent
-loops run as Python loops to a static bound guaranteed by the algorithm,
-with per-camera `done` masks turning finished cameras' iterations into
-no-ops — so a step never reads a value back to the host to decide
-whether to continue. Two loops of the reference become fixed-depth
-tensor programs with the same result: reachability inside a shape is a
-log-doubling transitive closure (ceil(log2 N) squarings instead of up
-to N one-hop expansions), and the "first removable member" probe tests
-all members' removals at once and picks the first in label order.
-
-Tie-breaking is the reference's: stable sorts break toward the lower
-cell id; argmax/argmin return the first extremum.
+The loops (`evolve_shape`, `resize_shape`, `first_removable` and the
+contiguity tests) are the plain versions of the shape_search and
+budget_walk kernels and live beside them in
+`repro_torch/kernels/shape_search/ops.py`; `fleet_step` calls the
+kernels' wrappers. They are re-exported here under the names of the
+reference's `fleet/shape_ops.py`.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.fleet.state import FleetConfig, FleetStatics
-from repro_torch.kernels.neighbor_score.ops import neighbor_scores
-
-INF = math.inf
-
-
-def _onehot(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """[...] int -> [..., n] bool."""
-    return torch.nn.functional.one_hot(idx, n).bool()
-
-
-def _first_true(x: torch.Tensor) -> torch.Tensor:
-    """Index of the first True along the last axis (0 when none)."""
-    return torch.argmax(x.to(torch.uint8), dim=-1)
-
-
-def _scores(statics: FleetStatics, mask, has_boxes, centroids, head):
-    return neighbor_scores(mask, has_boxes, centroids, head,
-                           statics.d_center, statics.overlap,
-                           statics.cell_x, statics.cell_y,
-                           statics.neighbor8)
-
-
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [F, N], idx [F] -> x[f, idx[f]]."""
-    return torch.gather(x, 1, idx[:, None])[:, 0]
-
-
-# ---------------------------------------------------------------------------
-# contiguity (8-connected)
-# ---------------------------------------------------------------------------
-
-def reach_closure(mask: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-    """[..., N] mask + [N, N] (or [..., N, N]) adjacency -> [..., N, N]
-    bool: r[..., i, j] = j is reachable from i inside `mask` (reflexive
-    on every cell). Log-doubling: after k squarings the closure covers
-    paths of up to 2**k hops, and ceil(log2 N) squarings cover any path
-    of a shape of N cells."""
-    n = mask.shape[-1]
-    inside = mask[..., :, None] & mask[..., None, :]
-    eye = torch.eye(n, dtype=torch.bool, device=mask.device)
-    r = ((adj & inside) | eye).to(torch.float32)
-    for _ in range(max(1, math.ceil(math.log2(max(n, 2))))):
-        r = (torch.matmul(r, r) > 0).to(torch.float32)
-    return r > 0
-
-
-def flood_reach(mask: torch.Tensor, seed: torch.Tensor,
-                adj: torch.Tensor) -> torch.Tensor:
-    """Cells of `mask` reachable from `seed` (both [..., N] bool)."""
-    r = reach_closure(mask, adj).to(torch.float32)
-    hop = torch.matmul((seed & mask).to(torch.float32)[..., None, :], r)
-    return mask & (hop[..., 0, :] > 0)
-
-
-def is_contiguous(mask: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-    """[..., N] bool -> [...] bool (empty / singleton masks are
-    contiguous)."""
-    n = mask.shape[-1]
-    reach = flood_reach(mask, _onehot(_first_true(mask), n), adj)
-    return torch.all(~mask | reach, dim=-1)
-
-
-def first_removable(mask: torch.Tensor, labels: torch.Tensor,
-                    adj: torch.Tensor) -> torch.Tensor:
-    """Lowest-label member whose removal keeps the shape 8-connected,
-    falling back to the lowest-label member outright. Returns [F].
-
-    Every member's removal is tested at once ([F, N, N] trial masks); the
-    pick is the first success in ascending-label order (ties toward the
-    lower cell id) — the reference probes the same order one by one."""
-    f, n = mask.shape
-    ord_asc = torch.sort(torch.where(mask, labels, INF), dim=-1,
-                         stable=True).indices                  # [F, N]
-    m = mask.sum(-1)
-    trial = mask[:, None, :] & ~_onehot(ord_asc, n)            # [F, r, N]
-    rank = torch.arange(n, device=mask.device)[None, :]
-    ok = is_contiguous(trial, adj) & (rank < m[:, None])       # member
-    pick = _rows(ord_asc, _first_true(ok))
-    return torch.where(ok.any(-1), pick, ord_asc[:, 0])
+from repro_torch.kernels.shape_search.ops import (  # noqa: F401
+    _onehot,
+    evolve_shape,
+    first_removable,
+    flood_reach,
+    is_contiguous,
+    resize_shape,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -122,143 +43,3 @@ def seed_shape(statics: FleetStatics, cfg: FleetConfig, size: torch.Tensor,
     tx = statics.coords[None, :, 1]
     return ((px >= p0[:, None]) & (px < (p0 + w)[:, None])
             & (tx >= t0[:, None]) & (tx < (t0 + h)[:, None]))
-
-
-# ---------------------------------------------------------------------------
-# head/tail shape evolution
-# ---------------------------------------------------------------------------
-
-def _evolve_multi(cfg: FleetConfig, statics: FleetStatics, mask, labels,
-                  centroids, has_boxes):
-    """The >= 2-member head/tail swap loop, all cameras at once."""
-    f, n = mask.shape
-    dev = mask.device
-    # members by descending label, ties toward the lower cell id; the
-    # order is frozen at loop entry
-    order = torch.sort(torch.where(mask, -labels, INF), dim=-1,
-                       stable=True).indices
-    m = mask.sum(-1)
-    done = m < 2
-    h_i = torch.zeros(f, dtype=torch.int64, device=dev)
-    t_i = torch.clamp(m - 1, min=0)
-    thresh = torch.full((f,), cfg.base_threshold, dtype=torch.float32,
-                        device=dev)
-    failed = torch.zeros(f, dtype=torch.bool, device=dev)
-    swaps = torch.zeros(f, dtype=torch.int64, device=dev)
-
-    # every live iteration breaks, advances the head (at most once per
-    # swap), or retires a tail — 2n + 2*max_swaps bounds the loop
-    for _ in range(2 * n + 2 * cfg.max_swaps):
-        done = done | (h_i >= t_i) | (swaps >= cfg.max_swaps)
-        H = _rows(order, torch.clamp(h_i, max=n - 1))
-        T = _rows(order, torch.clamp(t_i, 0, n - 1))
-        lab_h = _rows(labels, H)
-        lab_t = _rows(labels, T)
-        live = ~done & (lab_h / torch.clamp(lab_t, min=1e-9) > thresh)
-        done = done | (~done & ~live)      # insufficient disparity: break
-
-        scores, cand = _scores(statics, mask, has_boxes, centroids, H)
-        has_cand = cand.any(-1)
-        best = torch.argmax(torch.where(cand, scores, -INF), dim=-1)
-
-        # no candidate: first failure advances the head, second ends
-        nc = live & ~has_cand
-        done = done | (nc & failed)
-        advance = nc & ~failed
-        h_i = torch.where(advance, h_i + 1, h_i)
-        thresh = torch.where(advance, cfg.base_threshold, thresh)
-        failed = failed | advance
-
-        # candidate: swap if removing the tail keeps the trial contiguous
-        wc = live & has_cand
-        trial = mask | (_onehot(best, n) & wc[:, None])
-        keeps = is_contiguous(trial & ~_onehot(T, n), statics.neighbor8)
-        structural = wc & ~keeps
-        t_i = torch.where(structural, t_i - 1, t_i)
-        swap = wc & keeps
-        mask = torch.where(swap[:, None], trial & ~_onehot(T, n), mask)
-        failed = failed & ~swap
-        swaps = torch.where(swap, swaps + 1, swaps)
-        t_i = torch.where(swap, t_i - 1, t_i)
-        thresh = torch.where(swap, thresh * cfg.threshold_growth, thresh)
-    return mask
-
-
-def _evolve_single(cfg: FleetConfig, statics: FleetStatics, mask, labels,
-                   centroids, has_boxes):
-    """1-member drift/jump branch of the shape evolution."""
-    f, n = mask.shape
-    H = _first_true(mask)
-    lab_h = _rows(labels, H)
-    best_global = torch.argmax(labels, dim=-1)
-    lab_bg = labels.max(-1).values
-    jump = (best_global != H) & (lab_bg > lab_h * 2 * cfg.base_threshold)
-
-    scores, cand = _scores(statics, mask, has_boxes, centroids, H)
-    has_cand = cand.any(-1)
-    masked = torch.where(cand, scores, -INF)
-    best = torch.argmax(masked, dim=-1)
-    best_score = masked.max(-1).values
-    lab_best = _rows(labels, best)
-    moving_away = best_score > 1.05
-    promising = lab_best > lab_h * cfg.base_threshold
-    drift = ~jump & has_cand & (moving_away | promising)
-
-    target = torch.where(jump, best_global, best)
-    move = jump | drift
-    moved = (mask & ~_onehot(H, n)) | _onehot(target, n)
-    return torch.where(move[:, None], moved, mask)
-
-
-def evolve_shape(cfg: FleetConfig, statics: FleetStatics,
-                 mask: torch.Tensor, labels: torch.Tensor,
-                 centroids: torch.Tensor,
-                 has_boxes: torch.Tensor) -> torch.Tensor:
-    """All [F, ...]; returns [F, N]. The 1-member branch is evaluated for
-    every camera and selected per camera (no host-side branch)."""
-    m = mask.sum(-1)
-    multi = _evolve_multi(cfg, statics, mask, labels, centroids, has_boxes)
-    single = _evolve_single(cfg, statics, mask, labels, centroids,
-                            has_boxes)
-    out = torch.where((m == 1)[:, None], single, multi)
-    return torch.where((m == 0)[:, None], mask, out)
-
-
-# ---------------------------------------------------------------------------
-# resize to the budgeted cell count
-# ---------------------------------------------------------------------------
-
-def resize_shape(cfg: FleetConfig, statics: FleetStatics,
-                 mask: torch.Tensor, labels: torch.Tensor,
-                 centroids: torch.Tensor, has_boxes: torch.Tensor,
-                 target: torch.Tensor) -> torch.Tensor:
-    """Grow to / shrink to target [F] cells."""
-    f, n = mask.shape
-    target = torch.clamp(target, 1, n)
-    adj_f = statics.neighbor8.to(torch.float32)
-
-    # -- grow: add the best-scored neighbor of the highest-label member
-    #    that still has free neighbors. Each live iteration adds a cell
-    #    or marks the camera stuck, so n iterations suffice.
-    stuck = torch.zeros(f, dtype=torch.bool, device=mask.device)
-    for _ in range(n):
-        live = ~stuck & (mask.sum(-1) < target)
-        free = ((~mask).to(torch.float32) @ adj_f) > 0      # any free nbr
-        eligible = mask & free
-        H = torch.argmax(torch.where(eligible, labels, -INF), dim=-1)
-        ok = eligible.any(-1)
-        scores, cand = _scores(statics, mask, has_boxes, centroids, H)
-        best = torch.argmax(torch.where(cand, scores, -INF), dim=-1)
-        grow = live & ok
-        mask = mask | (_onehot(best, n) & grow[:, None])
-        stuck = stuck | (live & ~ok)
-
-    # -- shrink: drop the lowest-label member whose removal keeps the
-    #    shape connected; if none qualifies, drop the lowest regardless.
-    #    Each live iteration removes one cell, so n - 1 iterations
-    #    suffice.
-    for _ in range(n - 1):
-        live = mask.sum(-1) > target
-        T = first_removable(mask, labels, statics.neighbor8)
-        mask = mask & ~(_onehot(T, n) & live[:, None])
-    return mask

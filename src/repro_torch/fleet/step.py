@@ -4,16 +4,17 @@ Fixed-shape controller step over a [F, n_cells] fleet batch:
 
   _plan             exploration/transmission budget, closed form over
                     the static k in [min_send, max_send]
-  shape evolution   fleet/shape_ops (masked loops to static bounds)
-  _walk             induced-MST preorder walk with deterministic
-                    stitch/tie rules, batched over cameras
-  _shrink_to_budget drop cells until the walk fits the time budget
+  shape search      evolve + resize the shape (the shape_search
+                    kernel), then drop cells until its induced-MST
+                    preorder walk fits the time budget (budget_walk);
+                    kernels/shape_search, one launch each per step
   _zoom             per-cell zoom on box summary statistics
   _rank             predicted workload accuracy + stable ranking
 
 Tie-breaking is first extremum / lower cell id / earlier path position.
-No step reads a tensor back to the host: every loop runs to its static
-bound with per-camera done masks.
+No step reads a tensor back to the host: on the card the search's loops
+run inside the two kernels, each camera until it is done; the plain
+versions run them to their static bounds with per-camera done masks.
 """
 from __future__ import annotations
 
@@ -31,6 +32,10 @@ from repro_torch.fleet.state import (
     FleetState,
     FleetStatics,
     WorkloadSpec,
+)
+from repro_torch.kernels.shape_search.ops import (
+    budget_walk_batch,
+    shape_search_batch,
 )
 
 INF = math.inf
@@ -113,108 +118,6 @@ def _plan(cfg: FleetConfig, harmonic, rtt, train_acc, pred_var):
     mc = _take(mc_arr, pos)
     max_cells = torch.where(any_f, mc, torch.clamp(mc, min=cfg.min_send))
     return k_send, torch.clamp(t_explore, min=0.0), max_cells
-
-
-# ---------------------------------------------------------------------------
-# reachability: induced-MST preorder walk + shrink to the time budget
-# ---------------------------------------------------------------------------
-
-def _walk(statics: FleetStatics, mask, start):
-    """Preorder walk of each camera's shape. mask [F, N] bool, start [F].
-
-    Returns (order [F, N] padded with -1, count [F], path_time_deg [F])
-    in degrees (the caller divides by rotation speed)."""
-    f, n = mask.shape
-    dev = mask.device
-    ar = torch.arange(f, device=dev)
-    dist = statics.dist
-    m = mask.sum(-1)
-
-    masked_d = torch.where(mask, dist[start], INF)
-    start2 = torch.where(mask[ar, start], start,
-                         torch.argmin(masked_d, dim=-1))
-    induced = statics.mst_adj[None] & mask[:, :, None] & mask[:, None, :]
-    closure = shape_ops.reach_closure(mask, induced)          # [F, N, N]
-
-    # stitch the components of the induced forest to start2's component
-    # by the cheapest (row-major first) cross edge; each live iteration
-    # absorbs one whole component, so n - 1 iterations suffice
-    seed = shape_ops._onehot(start2, n) & mask
-    done = (seed[:, :, None] & closure).any(1) & mask
-    extra = torch.zeros((f, n, n), dtype=torch.bool, device=dev)
-    for _ in range(n - 1):
-        rest = mask & ~done
-        live = rest.any(-1)
-        cross = torch.where(done[:, :, None] & rest[:, None, :], dist, INF)
-        idx = torch.argmin(cross.reshape(f, n * n), dim=-1)
-        u, v = idx // n, idx % n
-        done = done | (closure[ar, v] & rest & live[:, None])
-        edge = (shape_ops._onehot(u, n)[:, :, None]
-                & shape_ops._onehot(v, n)[:, None, :]) & live[:, None, None]
-        extra = extra | edge | edge.transpose(1, 2)
-    tree = induced | extra
-
-    # preorder DFS, children visited nearest-first (ties: lower cell id);
-    # the push order is static per grid (statics.nbr_order). Every cell of
-    # the tree is pushed once, so n pops empty every stack.
-    stack = torch.zeros((f, n + 1), dtype=torch.int64, device=dev)
-    stack[:, 0] = start2
-    top = (m > 0).to(torch.int64)
-    seen = torch.zeros((f, n), dtype=torch.bool, device=dev)
-    order = torch.full((f, n), -1, dtype=torch.int64, device=dev)
-    cnt = torch.zeros(f, dtype=torch.int64, device=dev)
-    slot_ids = torch.arange(n, device=dev)[None, :]
-    for _ in range(n):
-        live = top > 0
-        u = _take(stack, torch.clamp(top - 1, min=0))
-        top2 = top - 1
-        seen = seen | (shape_ops._onehot(u, n) & live[:, None])
-        order = torch.where(live[:, None] & (slot_ids == cnt[:, None]),
-                            u[:, None], order)
-        cnt = cnt + live.to(torch.int64)
-
-        row = statics.nbr_order[u]                  # [F, N] push order
-        push = (torch.gather(tree[ar, u], 1, row)
-                & ~torch.gather(seen, 1, row) & live[:, None])
-        slots = torch.where(push, top2[:, None] + torch.cumsum(push, 1) - 1,
-                            n)                      # slot n: discarded
-        stack = stack.scatter(1, slots, row)
-        top = torch.where(live, top2 + push.sum(-1), top)
-
-    ordc = torch.clamp(order, min=0)
-    prev = torch.cat([start[:, None], ordc[:, :-1]], dim=1)
-    hops = dist[prev, ordc]
-    t_deg = torch.where(slot_ids < cnt[:, None], hops, 0.0).sum(-1)
-    return order, cnt, t_deg
-
-
-def _shrink_to_budget(cfg: FleetConfig, statics: FleetStatics, mask, start,
-                      labels, budget_s, per_cell):
-    """Drop cells (first_removable) until each camera's walk fits its
-    exploration budget. Returns (mask, order, cnt, t). Each live
-    iteration removes one cell and a single cell always fits, so n - 1
-    iterations suffice."""
-    f, n = mask.shape
-
-    def feasible(mask, cnt, t):
-        return (t + per_cell * cnt <= budget_s) | (mask.sum(-1) <= 1)
-
-    order, cnt, t_deg = _walk(statics, mask, start)
-    t = t_deg / cfg.rotation_speed
-    done = feasible(mask, cnt, t)
-    for _ in range(n - 1):
-        T = shape_ops.first_removable(mask, labels, statics.neighbor8)
-        mask = torch.where(~done[:, None],
-                           mask & ~shape_ops._onehot(T, n), mask)
-        o2, c2, td2 = _walk(statics, mask, start)
-        t2 = td2 / cfg.rotation_speed
-        ok = feasible(mask, c2, t2)
-        newly = ~done & ok
-        order = torch.where(newly[:, None], o2, order)
-        cnt = torch.where(newly, c2, cnt)
-        t = torch.where(newly, t2, t)
-        done = done | ok
-    return mask, order, cnt, t
 
 
 # ---------------------------------------------------------------------------
@@ -327,11 +230,9 @@ def fleet_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
     shape_reseed = shape_ops.seed_shape(statics, cfg, max_cells,
                                         reseed_center)
 
-    evolved = shape_ops.evolve_shape(cfg, statics, prev, labels,
-                                     state.centroids, state.has_boxes)
-    evolved = shape_ops.resize_shape(cfg, statics, evolved, labels,
-                                     state.centroids, state.has_boxes,
-                                     max_cells)
+    evolved = shape_search_batch(cfg, statics, prev, labels,
+                                 state.centroids, state.has_boxes,
+                                 max_cells)
     if cfg.scout_every:
         scout_now = ((max_cells == 1)
                      & (state.step_idx % cfg.scout_every
@@ -354,7 +255,7 @@ def fleet_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
     per_cell = max(0.0, cfg.approx_infer_s - hop_s)
     budget_s = torch.clamp(t_explore - cfg.approx_infer_s,
                            min=cfg.approx_infer_s + hop_s)
-    shape, order, cnt, path_time = _shrink_to_budget(
+    shape, order, cnt, path_time = budget_walk_batch(
         cfg, statics, shape, state.current_cell, labels, budget_s, per_cell)
     explored = shape
 

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels of the port (sources in repro_torch/csrc),
 each with a plain PyTorch version beside its wrapper:
 
-  neighbor_score   candidate scoring inside the shape-search loops
+  neighbor_score   candidate scoring (the kernel API; the main path
+                   scores inside shape_search)
+  shape_search     evolve + resize each camera's shape, once per step
+  budget_walk      shrink each shape until its MST walk fits the time
+                   budget, once per step
   cell_rasterize   boxes -> (cell x zoom) oracle tables, once per step
   crop_patchify    shortlisted crops -> ViT patch tokens, once per step
   flash_attention  online-softmax attention (the ViT's impl="flash")

@@ -30,16 +30,17 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("neighbor_score.cu", "cell_rasterize.cu", "crop_patchify.cu",
-           "flash_attention.cu", "box_iou.cu", "frame_delta.cu",
-           "rmsnorm.cu")
+SOURCES = ("neighbor_score.cu", "shape_search.cu", "cell_rasterize.cu",
+           "crop_patchify.cu", "flash_attention.cu", "box_iou.cu",
+           "frame_delta.cu", "rmsnorm.cu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-KERNELS = ("neighbor_score", "cell_rasterize", "crop_patchify",
-           "flash_attention", "box_iou", "frame_delta", "rmsnorm")
+KERNELS = ("neighbor_score", "shape_search", "budget_walk",
+           "cell_rasterize", "crop_patchify", "flash_attention", "box_iou",
+           "frame_delta", "rmsnorm")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +48,13 @@ _SIGNATURES = {
     # member_has, cent_x, cent_y, d_center, overlap, cell_x, cell_y, out,
     # B, N, stream
     "neighbor_score_launch": [_P] * 8 + [_I, _I, _P],
+    # prev, labels, centroids, has_boxes, max_cells, d_center, overlap,
+    # cell_x, cell_y, neighbor8, out, F, N, base_threshold,
+    # threshold_growth, max_swaps, stream
+    "shape_search_launch": [_P] * 11 + [_I, _I, _F, _F, _I, _P],
+    # mask, start, labels, budget_s, dist, mst_adj, nbr_order, neighbor8,
+    # out_mask, order, cnt, t, F, N, per_cell, rotation_speed, stream
+    "budget_walk_launch": [_P] * 12 + [_I, _I, _F, _F, _P],
     # ox, oy, ow, oh, draw, a0, a1, windows, cnt, area, wcx, wcy, wc2,
     # ext, B, M, P, C, n_moment, min_visible, stream
     "cell_rasterize_launch": [_P] * 14 + [_I] * 5 + [_F, _P],

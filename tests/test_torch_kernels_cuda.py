@@ -10,14 +10,17 @@ order 1 (the token product in split TF32 on the tensor cores vs
 torch.matmul); attention 3e-5 in float32 (split-TF32 products, online
 softmax, sums in another order) and 2e-2 in bfloat16;
 IoU 1e-6; NMS masks, matches, changed tiles and int8 residuals exact;
-rmsnorm 1e-5. chip_smoke.py runs the same checks at full-width shapes.
+rmsnorm 1e-5; shape_search and budget_walk decisions (masks, walk
+orders, counts) exact and the walk time 1e-6 relative (its hop sum in
+another order). chip_smoke.py runs the same checks at full-width shapes.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import DEFAULT_GRID  # noqa: E402
+from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
+from repro_torch.fleet import state as tstate  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
     box_iou,
@@ -50,15 +53,23 @@ from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
     rmsnorm,
     rmsnorm_plain,
 )
+from repro_torch.kernels.shape_search.ops import (  # noqa: E402
+    budget_walk_batch,
+    budget_walk_plain,
+    shape_search_batch,
+    shape_search_plain,
+)
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
     render_background,
 )
 from torch_kernel_inputs import (  # noqa: E402
     GEO,
+    SEARCH_GRIDS,
     neighbor_inputs,
     patchify_inputs,
     rasterize_inputs,
+    search_state,
     t,
 )
 
@@ -158,6 +169,59 @@ def test_crop_patchify_row_tiles_on_card(cuda, case):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
+def search_args(cuda, grid, f, seed):
+    """(cfg, statics, shape_search args, budget_walk args after the
+    shape) on the card, from a seeded state with ties; budgets that fit
+    nothing, everything and in between."""
+    n = grid.n_cells
+    shape, labels, has, cent = search_state(grid, f, seed)
+    rng = np.random.default_rng(seed + 1)
+    max_cells = rng.integers(0, n + 3, f)
+    start = rng.integers(0, n, f)
+    budget = rng.uniform(0.0, 0.6, f).astype(np.float32)
+    budget[::5] = 0.0
+    budget[1::5] = 1e3
+    cfg = tstate.fleet_config(grid)
+    statics = tstate.fleet_statics(grid, cuda)
+    ss = [t(x).to(cuda) for x in (shape, labels, cent, has, max_cells)]
+    bw = [t(x).to(cuda) for x in (start, labels, budget)]
+    return cfg, statics, ss, bw
+
+
+SEARCH_CASES = [(f, n) for n in (25, 50, 128) for f in (1, 64, 1024)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f,n", SEARCH_CASES,
+                         ids=[f"F{f}-N{n}" for f, n in SEARCH_CASES])
+def test_shape_search_kernel_on_card(cuda, f, n):
+    cfg, statics, args, _ = search_args(cuda, SEARCH_GRIDS[n], f, f + n)
+    _lib.reset_launch_counts()
+    got = shape_search_batch(cfg, statics, *args)
+    assert _lib.launch_counts()["shape_search"] == 1
+    want = shape_search_plain(cfg, statics, *args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("per_cell", [0.0, 0.004])
+@pytest.mark.parametrize("f,n", SEARCH_CASES,
+                         ids=[f"F{f}-N{n}" for f, n in SEARCH_CASES])
+def test_budget_walk_kernel_on_card(cuda, f, n, per_cell):
+    cfg, statics, ss, (start, labels, budget) = search_args(
+        cuda, SEARCH_GRIDS[n], f, 2 * f + n)
+    mask = ss[0]
+    _lib.reset_launch_counts()
+    got = budget_walk_batch(cfg, statics, mask, start, labels, budget,
+                            per_cell)
+    assert _lib.launch_counts()["budget_walk"] == 1
+    want = budget_walk_plain(cfg, statics, mask, start, labels, budget,
+                             per_cell)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)
+
+
 @pytest.mark.requires_cuda
 def test_wrappers_reject_bad_input(cuda):
     args = [t(x).to(cuda) for x in rasterize_inputs(2, 2, 0)]
@@ -165,6 +229,32 @@ def test_wrappers_reject_bad_input(cuda):
         cell_rasterize(*args[:4], args[4].double(), *args[5:])
     with pytest.raises(ValueError):
         cell_rasterize(args[0].t(), *args[1:])
+
+    cfg, statics, ss, (start, labels, budget) = search_args(
+        cuda, DEFAULT_GRID, 4, 0)
+    shape, _, cent, has, max_cells = ss
+    with pytest.raises(TypeError):                     # float64 labels
+        shape_search_batch(cfg, statics, shape, labels.double(), cent, has,
+                           max_cells)
+    with pytest.raises(TypeError):                     # int32 start
+        budget_walk_batch(cfg, statics, shape, start.int(), labels, budget,
+                          0.0)
+    with pytest.raises(ValueError):                    # CPU labels
+        shape_search_batch(cfg, statics, shape, labels.cpu(), cent, has,
+                           max_cells)
+    with pytest.raises(ValueError):                    # CPU budget
+        budget_walk_batch(cfg, statics, shape, start, labels, budget.cpu(),
+                          0.0)
+    with pytest.raises(ValueError):                    # not contiguous
+        shape_search_batch(cfg, statics, shape, labels, cent.transpose(0, 1),
+                           has, max_cells)
+    # more than 128 cells: 20 x 10
+    big = OrientationGrid(pan_step=7.5, tilt_step=7.5)
+    cfg, statics, ss, (start, labels, budget) = search_args(cuda, big, 2, 0)
+    with pytest.raises(ValueError, match="128"):
+        shape_search_batch(cfg, statics, *ss)
+    with pytest.raises(ValueError, match="128"):
+        budget_walk_batch(cfg, statics, ss[0], start, labels, budget, 0.0)
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, q_offset, dtype)
@@ -277,7 +367,24 @@ def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
                                rtol=tol, atol=tol)
 
 
+def _empty_search(name, d):
+    """shape_search or budget_walk over zero cameras."""
+    cfg = tstate.fleet_config(DEFAULT_GRID)
+    st = tstate.fleet_statics(DEFAULT_GRID, d)
+    n = DEFAULT_GRID.n_cells
+    mask = torch.zeros(0, n, dtype=torch.bool, device=d)
+    labels = torch.zeros(0, n, device=d)
+    none = torch.zeros(0, dtype=torch.int64, device=d)
+    if name == "shape_search":
+        return shape_search_batch(cfg, st, mask, labels,
+                                  torch.zeros(0, n, 2, device=d), mask, none)
+    return budget_walk_batch(cfg, st, mask, none, labels,
+                             torch.zeros(0, device=d), 0.0)
+
+
 EMPTY_CASES = {
+    "shape_search": lambda d: _empty_search("shape_search", d),
+    "budget_walk": lambda d: _empty_search("budget_walk", d),
     "box_iou": lambda d: box_iou(torch.zeros(0, 4, device=d),
                                  torch.zeros(5, 4, device=d)),
     "flash_attention": lambda d: flash_attention(
@@ -299,5 +406,7 @@ def test_empty_input_launches_nothing(cuda, name):
     assert _lib.launch_counts()[name] == 0
     if name == "frame_delta":
         assert out[0].numel() == 0 and int(out[1].abs().sum()) == 0
+    elif name == "budget_walk":
+        assert all(x.numel() == 0 for x in out)
     else:
         assert out.numel() == 0
