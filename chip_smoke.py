@@ -10,28 +10,31 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      tensor-core instructions (HGMMA/HMMA) in the library's SASS;
   3. hold each kernel against its plain PyTorch version on the card —
      neighbor_score (the kernel API the shape search used to launch),
-     cell_rasterize and crop_patchify at the main path's shapes, then
+     cell_rasterize (the kernel API the oracle pass used to launch) and
+     crop_patchify at the main path's shapes, then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
      with q_offset, bf16), box_iou, nms_mask/match_boxes (card vs CPU),
      frame_delta and rmsnorm at full-size shapes — and time each with
      CUDA events beside its bound and, where one PyTorch call computes
-     the same function, that call; kernels whose device time is below a
-     Python call's dispatch time also get a device-only time (a CUDA
-     graph of the calls, replayed);
+     the same function, that call; kernels whose device time is near or
+     below a Python call's dispatch time also get a device-only time (a
+     CUDA graph of the calls, replayed);
   4. check the port end to end on a small input: run_fleet on the card
      and on the CPU (plain versions) must make the same decisions;
   5. drive the main path once — run_fleet(provider="detector") at the
      full width of madeye-approx, 64 cameras, 8 steps, shortlist_k=18 —
      with the launch counters set to 0 just before and read just after;
      each of the four main-path kernels (shape_search, budget_walk,
-     cell_rasterize, crop_patchify) must have launched, and no other
-     (run_fleet runs the reference's plain attention, and the shape
-     search scores its candidates inside shape_search); the result must
-     be well formed. The inputs and outputs of every shape_search and
-     budget_walk call of the episode are recorded, and the plain
-     versions must make the same decisions on each, and on seeded
-     random states at the same shapes; both kernels are timed on the
-     last step's inputs (and, printed only, on random states at larger
+     oracle_pass, crop_patchify) must have launched once per step, and
+     no other (run_fleet runs the reference's plain attention, the shape
+     search scores its candidates inside shape_search and the oracle
+     pass rasterizes inside oracle_pass); the result must be well
+     formed. The inputs and outputs of every oracle_pass, shape_search
+     and budget_walk call of the episode are recorded, and the plain
+     versions must give the same tables and make the same decisions on
+     each (the search kernels also on seeded random states at the same
+     shapes); the three kernels are timed on the last step's inputs
+     (and the search kernels, printed only, on random states at larger
      fleets and grids);
   6. drive the ViT flash path: the main path's own crop_patchify tokens
      (64 cameras x 18 crops) through vit_features_tokens(impl="flash")
@@ -41,7 +44,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
   7. drive the kernel APIs (box_iou, nms_mask, match_boxes, frame_delta
      over one 1080p frame per camera, rmsnorm) with the counters set to
      0 just before and read just after;
-  8. time one step of the main path stage by stage;
+  8. time one step of the main path stage by stage (the scene advance
+     and the oracle pass apart);
   9. print one JSON line describing every kernel, the card line again,
      and as the last line {"ok": true, "device": {...}}.
 
@@ -100,6 +104,10 @@ from repro_torch.kernels.neighbor_score.ops import (  # noqa: E402
     neighbor_score_batch,
     neighbor_score_plain,
 )
+from repro_torch.kernels.oracle_pass.ops import (  # noqa: E402
+    oracle_pass,
+    oracle_pass_plain,
+)
 from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
     rmsnorm,
     rmsnorm_plain,
@@ -116,9 +124,11 @@ from repro_torch.models.detector import (  # noqa: E402
     neck_features,
 )
 from repro_torch.models.vit import vit_features_tokens  # noqa: E402
+from repro_torch.scene import observe as observe_module  # noqa: E402
 from repro_torch.scene.observe import (  # noqa: E402
     detections_obs,
     grid_windows,
+    observe_all_cells,
 )
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
@@ -136,7 +146,7 @@ from repro_torch.scene.scene import (  # noqa: E402
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
-MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "cell_rasterize",
+MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
                      "crop_patchify")
 # the card's published peaks (NVIDIA H100 SXM data sheet: HBM3 bandwidth,
 # float32 outside the tensor cores, dense TF32 and bf16 on the tensor
@@ -171,6 +181,11 @@ SOURCES = {
         "src/repro/kernels/neighbor_score/neighbor_score.py:47"),
     "cell_rasterize": (
         "src/repro_torch/csrc/cell_rasterize.cu",
+        "src/repro/kernels/cell_rasterize/cell_rasterize.py:89"),
+    # the whole oracle pass around the rasterization; the TPU kernel it
+    # replaces on the main path is cell_rasterize's
+    "oracle_pass": (
+        "src/repro_torch/csrc/oracle_pass.cu",
         "src/repro/kernels/cell_rasterize/cell_rasterize.py:89"),
     "crop_patchify": (
         "src/repro_torch/csrc/crop_patchify.cu",
@@ -545,6 +560,7 @@ def new_kernel_phase(dev) -> dict:
     rows["box_iou"] = dict(
         max_abs_err=max_err((got,), (want,)),
         ms=cuda_ms(lambda: box_iou(a, b), 50),
+        graph_ms=graph_ms(lambda: box_iou(a, b), 50),
         plain_ms=cuda_ms(lambda: box_iou_plain(a, b), 10),
         bound=bound(4 * (4 * n + 4 * n + n * n), 13.0 * n * n),
         library_ms=None)
@@ -564,6 +580,7 @@ def new_kernel_phase(dev) -> dict:
     rows["frame_delta"] = dict(
         max_abs_err=float(err),
         ms=cuda_ms(lambda: frame_delta_tiles(cur, prev), 100),
+        graph_ms=graph_ms(lambda: frame_delta_tiles(cur, prev), 100),
         plain_ms=cuda_ms(lambda: frame_delta_plain(cur, prev), 20),
         bound=bound(h * w * c * (4 + 4 + 1) + 4 * gg, 6.0 * h * w * c),
         library_ms=None)
@@ -640,20 +657,48 @@ class SearchRecorder:
             setattr(step_module, name, fn)
 
 
+class OracleRecorder:
+    """While active, records the arguments and results of every
+    oracle_pass call that observe_all_cells makes (clones, by wrapping
+    the name scene/observe.py calls). The wrapped call is the wrapper
+    itself, launched once as always."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = observe_module.oracle_pass
+
+        def recorded(*args, **kwargs):
+            out = self.saved(*args, **kwargs)
+            self.calls.append((_clone(args), _clone(kwargs), _clone(out)))
+            return out
+
+        observe_module.oracle_pass = recorded
+        return self
+
+    def __exit__(self, *exc):
+        observe_module.oracle_pass = self.saved
+
+
 def _clone(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
-    if isinstance(x, tuple):
-        return tuple(_clone(v) for v in x)
+    if isinstance(x, tuple):            # NamedTuples keep their type
+        vals = [_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
     return x
 
 
 def main_path_phase(spec: FleetRunSpec):
     """Drive run_fleet once at the main path's cell; return (result,
-    launch counts of that run, the recorded shape-search calls)."""
+    launch counts of that run, the recorded shape-search calls, the
+    recorded oracle-pass calls)."""
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
-    with SearchRecorder() as rec:
+    with SearchRecorder() as rec, OracleRecorder() as orec:
         result = run_fleet(spec)
     counts = _lib.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -674,6 +719,10 @@ def main_path_phase(spec: FleetRunSpec):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    uneven = [k for k in MAIN_PATH_KERNELS if counts[k] != N_STEPS + 1]
+    if uneven:
+        raise AssertionError(f"main-path kernels not launched once per "
+                             f"step: {uneven} ({counts})")
     stray = [k for k, v in counts.items()
              if v and k not in MAIN_PATH_KERNELS]
     if stray:
@@ -686,7 +735,69 @@ def main_path_phase(spec: FleetRunSpec):
           f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
           f"peak_mem_gib={peak:.2f} launches={counts} "
           f"(over {N_STEPS} steps + 1 warm-up step)", flush=True)
-    return result, counts, rec.calls
+    return result, counts, rec.calls, orec.calls
+
+
+def oracle_phase(calls) -> dict:
+    """oracle_pass against its plain version on the inputs of every step
+    of the main-path episode: counts, nbox and acc_true exactly equal;
+    areas, centroid and extent within 1e-5 (absolute + relative: float32
+    sums over objects in another order), the spread within 1e-2 as a
+    variance (it cancels: the tolerance of the CPU tests against the JAX
+    package). Timed on the last step's inputs (ms: Python calls;
+    graph_ms: a CUDA graph of the calls). Returns its row."""
+    if len(calls) != N_STEPS + 1:
+        raise AssertionError(f"oracle_pass: {len(calls)} calls recorded, "
+                             f"want {N_STEPS + 1}")
+    errs = {k: 0.0 for k in ("areas", "centroid", "extent", "spread")}
+    for step, (args, kw, got) in enumerate(calls):
+        want = oracle_pass_plain(*args, **kw)
+        for name in ("counts", "nbox", "acc_true"):
+            g, w = getattr(got, name), getattr(want, name)
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"oracle_pass step {step}: {name} differs from the "
+                    f"plain version in {int((g != w).sum())} places")
+        for name in ("areas", "centroid", "extent"):
+            check_close(f"oracle_pass step {step} {name}",
+                        (getattr(got, name),), (getattr(want, name),),
+                        atol=1e-5, rtol=1e-5)
+        check_close(f"oracle_pass step {step} spread^2",
+                    (got.spread ** 2,), (want.spread ** 2,), atol=1e-2,
+                    rtol=1e-5)
+        for name in errs:
+            errs[name] = max(errs[name], max_err((getattr(got, name),),
+                                                 (getattr(want, name),)))
+    args, kw, got = calls[-1]
+    _, teach, _, state, _, windows = args
+    f, m = state.oid.shape
+    p = teach.a0.shape[0]
+    c = windows.shape[0]
+    q = len(kw["pair_idx"])
+    # inputs: pos, size, oid, enabled, t, cam_salt, 4 f32 + 2 i64 teacher
+    # rows, windows, the queries (kernel parameters); outputs:
+    # counts/areas, centroid, spread, extent, acc_true (f32), nbox (i64)
+    n_bytes = (f * m * (8 + 8 + 8 + 1) + 16 * f + p * (16 + 16) + 16 * c
+               + 8 * q + f * c * (8 * p + 8 + 12 + 8))
+    # per (camera, object, window): ~25 geometry ops + ~6 per channel of
+    # 2P; per (camera, pair, object): three hashes of ~24 ops
+    n_ops = f * m * c * (25 + 12 * p) + f * p * m * 72
+
+    def run():
+        return oracle_pass(*args, **kw)
+
+    row = dict(max_abs_err=max(errs.values()),
+               ms=cuda_ms(run, 200), graph_ms=graph_ms(run, 200),
+               plain_ms=cuda_ms(lambda: oracle_pass_plain(*args, **kw), 20),
+               bound=bound(n_bytes, n_ops), library_ms=None)
+    exact = all(torch.equal(getattr(got, k), getattr(want, k))
+                for k in errs)
+    print(f"oracle_pass: kernel and plain agree on all {len(calls)} steps "
+          f"of the episode (counts, nbox, acc_true exact; max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; last step's floats exactly equal: {exact})", flush=True)
+    print_row("oracle_pass", row)
+    return row
 
 
 def search_phase(calls) -> dict:
@@ -950,8 +1061,15 @@ def stage_phase(spec: FleetRunSpec) -> None:
     with torch.no_grad():
         for _ in range(2):
             ms = {}
-            (sc1, o), ms["scene_and_oracle"] = timed(
-                lambda: p.scene.oracle(cfg, wl, sc, st))
+            # SceneProvider.oracle, in its two parts
+            sc1, ms["scene_advance"] = timed(lambda: advance_scene(
+                p.scene.spec, p.scene.params, st.rng, sc, st.step_idx,
+                p.scene.stride))
+            o, ms["oracle"] = timed(lambda: observe_all_cells(
+                p.scene.spec, p.scene.teach, p.scene.params, sc1,
+                st.step_idx * p.scene.stride, p.scene.windows,
+                task_id=wl.task_id, pair_idx=wl.pair_idx,
+                n_zoom=len(cfg.zoom_levels), cam_salt=st.rng[:, 0]))
             noise, ms["render_noise"] = timed(lambda: render_noise(
                 st.rng, st.step_idx * p.scene.stride, res) * p.noise)
             dets, ms["shortlist_patchify_detector"] = timed(
@@ -1002,7 +1120,8 @@ def main() -> int:
         provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
         shortlist_k=SHORTLIST_K,
         provider_kwargs={"det_cfg": get_config("madeye-approx")})
-    _, counts, calls = main_path_phase(spec)
+    _, counts, calls, oracle_calls = main_path_phase(spec)
+    rows["oracle_pass"] = oracle_phase(oracle_calls)
     rows.update(search_phase(calls))
     random_search_phase(dev)
     vit_row, dets = vit_flash_phase(spec)

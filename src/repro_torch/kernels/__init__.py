@@ -6,7 +6,10 @@ each with a plain PyTorch version beside its wrapper:
   shape_search     evolve + resize each camera's shape, once per step
   budget_walk      shrink each shape until its MST walk fits the time
                    budget, once per step
-  cell_rasterize   boxes -> (cell x zoom) oracle tables, once per step
+  cell_rasterize   boxes -> (cell x zoom) window tables (the kernel API;
+                   the main path rasterizes inside oracle_pass)
+  oracle_pass      the whole oracle pass (draws, rasterization, tables,
+                   oracle accuracy), once per step
   crop_patchify    shortlisted crops -> ViT patch tokens, once per step
   flash_attention  online-softmax attention (the ViT's impl="flash")
   box_iou          dense IoU matrix under NMS and box matching

@@ -31,16 +31,16 @@ from pathlib import Path
 import torch
 
 SOURCES = ("neighbor_score.cu", "shape_search.cu", "cell_rasterize.cu",
-           "crop_patchify.cu", "flash_attention.cu", "box_iou.cu",
-           "frame_delta.cu", "rmsnorm.cu")
+           "oracle_pass.cu", "crop_patchify.cu", "flash_attention.cu",
+           "box_iou.cu", "frame_delta.cu", "rmsnorm.cu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 KERNELS = ("neighbor_score", "shape_search", "budget_walk",
-           "cell_rasterize", "crop_patchify", "flash_attention", "box_iou",
-           "frame_delta", "rmsnorm")
+           "cell_rasterize", "oracle_pass", "crop_patchify",
+           "flash_attention", "box_iou", "frame_delta", "rmsnorm")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,6 +58,12 @@ _SIGNATURES = {
     # ox, oy, ow, oh, draw, a0, a1, windows, cnt, area, wcx, wcy, wc2,
     # ext, B, M, P, C, n_moment, min_visible, stream
     "cell_rasterize_launch": [_P] * 14 + [_I] * 5 + [_F, _P],
+    # pos, size, oid, enabled, t, cam_salt, a0, a1, pmax, flicker, cls,
+    # salt, windows, queries (host [2, Q] int32), counts, areas,
+    # centroid, spread, extent, nbox, acc_true, F, M, P, C, Q,
+    # salt_stride, max_people, flicker_bucket, base_salt, miss_salt,
+    # min_visible, miss_rate, stream
+    "oracle_pass_launch": [_P] * 21 + [_I] * 10 + [_F] * 2 + [_P],
     # ox, oy, ow, oh, colors, windows, bgn, w, b, out, F, M, K,
     # per_camera_windows, res, patch, D, min_visible, stream
     "crop_patchify_launch": [_P] * 10 + [_I] * 7 + [_F, _P],

@@ -30,11 +30,11 @@ def window_arrays(grid, zoom_levels=(1.0, 2.0, 3.0)) -> np.ndarray:
     return np.asarray(rows, np.float32)
 
 
-def cell_rasterize_plain(ox, oy, ow, oh, draw, a0, a1, windows, *,
-                         min_visible: float = 0.25,
-                         n_moment: int | None = None):
-    """ox/oy/ow/oh [B, M]; draw [B, P, M]; a0/a1 [P]; windows [C, 4].
-    -> (cnt [B, P, C], area [B, P, C], wcx, wcy, wc2, ext [B, C])."""
+def window_geometry(ox, oy, ow, oh, draw, a0, a1, windows, *,
+                    min_visible: float = 0.25):
+    """The per-(object, window) terms the sums reduce: detections detf
+    [B, P, M, C] (float 0/1), normalized clipped area a_norm, clipped
+    center ccx/ccy and clipped side, each [B, M, C]."""
     x0 = windows[:, 0][None, None, :]           # [1, 1, C]
     y0 = windows[:, 1][None, None, :]
     fw = windows[:, 2][None, None, :]
@@ -64,6 +64,16 @@ def cell_rasterize_plain(ox, oy, ow, oh, draw, a0, a1, windows, *,
     x = torch.clamp((apparent[:, None] - a0[None, :, None, None]) / span,
                     0.0, 1.0)                   # [B, P, M, C]
     detf = ((draw[..., None] < x) & visible[:, None]).to(torch.float32)
+    return detf, a_norm, ccx, ccy, torch.maximum(iw, ih)
+
+
+def cell_rasterize_plain(ox, oy, ow, oh, draw, a0, a1, windows, *,
+                         min_visible: float = 0.25,
+                         n_moment: int | None = None):
+    """ox/oy/ow/oh [B, M]; draw [B, P, M]; a0/a1 [P]; windows [C, 4].
+    -> (cnt [B, P, C], area [B, P, C], wcx, wcy, wc2, ext [B, C])."""
+    detf, a_norm, ccx, ccy, side = window_geometry(
+        ox, oy, ow, oh, draw, a0, a1, windows, min_visible=min_visible)
     cnt = torch.sum(detf, dim=2)                # [B, P, C]
     area = torch.sum(detf * a_norm[:, None], dim=2)
     if n_moment is None:
@@ -72,7 +82,6 @@ def cell_rasterize_plain(ox, oy, ow, oh, draw, a0, a1, windows, *,
     wcx = torch.sum(mult * ccx, dim=1)           # [B, C]
     wcy = torch.sum(mult * ccy, dim=1)
     wc2 = torch.sum(mult * (ccx * ccx + ccy * ccy), dim=1)
-    side = torch.maximum(iw, ih)
     ext = torch.amax(torch.where(mult > 0, side, torch.zeros_like(side)),
                      dim=1)
     return cnt, area, wcx, wcy, wc2, ext

@@ -153,6 +153,65 @@ def test_frame_delta_identical_frames_send_nothing():
     assert int(nbytes) == changed.numel() // 8 + 4
 
 
+FD_THREADS = 128        # csrc/frame_delta.cu's kThreads
+
+
+def frame_delta_variant(w, c, tile_h, tile_w):
+    """(kVec, kIter) the frame_delta launch picks for aligned pointers:
+    16-float items kept in registers where every tile row starts on 16
+    floats and the tile fits, else scalar items and (kIter 0) a second
+    read."""
+    aligned = (w * c) % 16 == 0 and (tile_w * c) % 16 == 0
+    if aligned and tile_h * tile_w * c <= 16 * 4 * FD_THREADS:
+        return 16, 4
+    return 1, 0
+
+
+def frame_delta_walk(h, w, c, tile_h, tile_w, by, bx):
+    """The (row, item) pairs each thread of tile (by, bx) visits, by the
+    kernel's stepping (no division per item): the model of the walk in
+    csrc/frame_delta.cu."""
+    kvec, kiter = frame_delta_variant(w, c, tile_h, tile_w)
+    x0, y0 = bx * tile_w, by * tile_h
+    items_row = tile_w * c // kvec
+    items_valid = (min(x0 + tile_w, w) - x0) * c // kvec
+    rows_valid = min(y0 + tile_h, h) - y0
+    dr, dj = FD_THREADS // items_row, FD_THREADS % items_row
+    seen = []
+    for tid in range(FD_THREADS):
+        r, j = tid // items_row, tid % items_row
+        k = 0
+        while (k < kiter) if kiter else (r < rows_valid):
+            if r < rows_valid and j < items_valid:
+                seen.append((r, j))
+            r, j = r + dr, j + dj
+            if j >= items_row:
+                r, j = r + 1, j - items_row
+            k += 1
+    return kvec, seen
+
+
+@pytest.mark.parametrize("h,w,tile", [
+    (64, 128, (16, 128)), (37, 53, (8, 16)), (40, 160, (8, 16)),
+    (37, 53, (16, 64)), (70, 130, (16, 128)), (64, 512, (64, 256)),
+    (50, 300, (32, 100)), (1080, 1920, (16, 128))])
+def test_frame_delta_kernel_walk_covers_tiles(h, w, tile):
+    """Every in-frame element of the first and the edge tiles is visited
+    once, and nothing outside the frame is."""
+    c = 3
+    th, tw = tile
+    gh, gw = -(-h // th), -(-w // tw)
+    for by, bx in {(0, 0), (gh - 1, 0), (0, gw - 1), (gh - 1, gw - 1)}:
+        kvec, seen = frame_delta_walk(h, w, c, th, tw, by, bx)
+        assert len(seen) == len(set(seen))
+        elems = {(by * th + r, bx * tw * c + j * kvec + e)
+                 for r, j in seen for e in range(kvec)}
+        want = {(y, x * c + e) for y in range(by * th, min(by * th + th, h))
+                for x in range(bx * tw, min(bx * tw + tw, w))
+                for e in range(c)}
+        assert elems == want
+
+
 @pytest.mark.parametrize("shape", [(4, 16, 64), (2, 100, 256), (7, 33),
                                    (1, 1, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -5,8 +5,11 @@ mode). Imports no JAX, so it runs where the card is:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: counts exact; neighbor scores, areas and moments 1e-5
-(float32 sums in another order); patch tokens 1e-4 absolute on values of
-order 1 (the token product in split TF32 on the tensor cores vs
+(float32 sums in another order); the oracle pass's counts, box counts
+and accuracy exact, its areas, centroids and extents 1e-5 and its
+spread as a variance within 1e-2 of a float64 sum, and of the plain
+version's at 22 object slots (see assert_oracle_equal); patch tokens
+1e-4 absolute on values of order 1 (the token product in split TF32 on the tensor cores vs
 torch.matmul); attention 3e-5 in float32 (split-TF32 products, online
 softmax, sums in another order) and 2e-2 in bfloat16;
 IoU 1e-6; NMS masks, matches, changed tiles and int8 residuals exact;
@@ -49,6 +52,10 @@ from repro_torch.kernels.neighbor_score.ops import (  # noqa: E402
     neighbor_score_batch,
     neighbor_score_plain,
 )
+from repro_torch.kernels.oracle_pass.ops import (  # noqa: E402
+    oracle_pass,
+    oracle_pass_plain,
+)
 from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
     rmsnorm,
     rmsnorm_plain,
@@ -63,13 +70,18 @@ from repro_torch.scene.render import (  # noqa: E402
     object_colors,
     render_background,
 )
+from repro_torch.scene.scene import SceneSpec  # noqa: E402
 from torch_kernel_inputs import (  # noqa: E402
     GEO,
     SEARCH_GRIDS,
     neighbor_inputs,
+    oracle_args,
+    oracle_state,
+    oracle_variance_f64,
     patchify_inputs,
     rasterize_inputs,
     search_state,
+    spread_errors,
     t,
 )
 
@@ -103,6 +115,117 @@ def test_cell_rasterize_kernel_on_card(cuda):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# (F, M, P): one camera, the main path's fleet and a large one; the
+# scene's 22 object slots and the kernel's 128; 2, 8 and 16 channels
+RASTER_CASES = [(f, m, p) for f in (1, 64, 1024) for m in (22, 128)
+                for p in (2, 8, 16)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f,m,p", RASTER_CASES,
+                         ids=[f"F{f}-M{m}-P{p}" for f, m, p in RASTER_CASES])
+def test_cell_rasterize_shapes_on_card(cuda, f, m, p):
+    args = [t(x).to(cuda) for x in rasterize_inputs(f, p, f + m + p, m=m)]
+    _lib.reset_launch_counts()
+    got = cell_rasterize(*args, n_moment=p // 2)
+    assert _lib.launch_counts()["cell_rasterize"] == 1
+    want = cell_rasterize_plain(*args, n_moment=p // 2)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def assert_oracle_equal(got, want, var64, m):
+    """counts, nbox and acc_true exact; areas, centroid and extent 1e-5;
+    the spread as a variance (spread^2) within 1e-2 of the float64 sum
+    of the same per-object terms (`var64`), the kernel's and the plain
+    version's alike, and at the scene's 22 object slots also within 1e-2
+    of each other. The variance E[c^2] - |E[c]|^2 cancels: E[c^2]
+    reaches ~3e4 deg^2, one float32 ulp of it ~2e-3, and each side lands
+    a few ulps from the exact value whatever the order of its sums (on
+    the card, 128 slots: up to 7.2e-3 for the kernel's warp tree and
+    8.5e-3 for the plain version's reduction, tools/spread_error.py),
+    so two float32 sides can differ by more than 1e-2 where each is
+    within 1e-2 of the exact variance."""
+    for name in ("counts", "nbox", "acc_true"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape and torch.equal(g, w), name
+    for name in ("areas", "centroid", "extent"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-5, atol=1e-5, msg=name)
+    k_err, p_err, _, _ = spread_errors(got, want, var64)
+    assert k_err <= 1e-2, f"kernel spread^2 off float64 by {k_err}"
+    assert p_err <= 1e-2, f"plain spread^2 off float64 by {p_err}"
+    if m <= 22:
+        torch.testing.assert_close(got.spread ** 2, want.spread ** 2,
+                                   rtol=1e-5, atol=1e-2)
+
+
+ORACLE_CASES = [(f, m, p) for f in (1, 64, 1024) for m in (22, 128)
+                for p in (1, 4, 8)]
+
+
+def oracle_card_args(f, m, seed, *, miss_rate=0.12, enabled_p=0.85):
+    people = 14 if m == 22 else 100
+    spec = SceneSpec(max_people=people, max_cars=m - people,
+                     miss_rate=miss_rate)
+    return spec, oracle_state(f, people, m - people, seed,
+                              enabled_p=enabled_p)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f,m,p", ORACLE_CASES,
+                         ids=[f"F{f}-M{m}-P{p}" for f, m, p in ORACLE_CASES])
+def test_oracle_pass_kernel_on_card(cuda, f, m, p):
+    spec, st = oracle_card_args(f, m, f + m + p)
+    args, kw = oracle_args(st, spec, p, device=cuda)
+    _lib.reset_launch_counts()
+    got = oracle_pass(*args, **kw)
+    assert _lib.launch_counts()["oracle_pass"] == 1
+    assert sum(_lib.launch_counts().values()) == 1
+    want = oracle_pass_plain(*args, **kw)
+    assert_oracle_equal(got, want, oracle_variance_f64(args, kw), m)
+    assert float(got.counts.sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["miss0", "miss1", "all_disabled",
+                                  "bucket_edge", "no_cam_salt"])
+def test_oracle_pass_edge_cases_on_card(cuda, case):
+    """miss_rate 0 and 1, every camera disabled (acc_true 1.0), frames 2
+    and 3 across a flicker bucket, no camera salt."""
+    spec, st = oracle_card_args(
+        64, 22, 9, miss_rate={"miss0": 0.0, "miss1": 1.0}.get(
+            case, 0.12), enabled_p=0.0 if case == "all_disabled" else 0.85)
+    if case == "bucket_edge":
+        st["t"] = np.where(np.arange(64) % 2, 3, 2).astype(np.int64)
+    args, kw = oracle_args(st, spec, 4, device=cuda)
+    if case == "no_cam_salt":
+        kw["cam_salt"] = None
+    got = oracle_pass(*args, **kw)
+    assert_oracle_equal(got, oracle_pass_plain(*args, **kw),
+                        oracle_variance_f64(args, kw), 22)
+    if case in ("miss1", "all_disabled"):
+        assert float(got.counts.sum()) == 0
+    if case == "all_disabled":
+        assert bool((got.acc_true == 1.0).all())
+
+
+@pytest.mark.requires_cuda
+def test_oracle_pass_refuses_other_kind_layout(cuda, monkeypatch):
+    """The kernel reads a slot's kind as m >= max_people (PERSON, then
+    CAR): a kind_mask laid out otherwise raises before any launch."""
+    from repro_torch.kernels.oracle_pass import ops as orc
+    spec, st = oracle_card_args(4, 22, 1)
+    args, kw = oracle_args(st, spec, 4, device=cuda)
+    monkeypatch.setattr(orc, "kind_mask", lambda s: 1 - np.where(
+        np.arange(s.max_objects) < s.max_people, 0, 1))
+    _lib.reset_launch_counts()
+    with pytest.raises(ValueError, match="kind_mask"):
+        oracle_pass(*args, **kw)
+    assert _lib.launch_counts()["oracle_pass"] == 0
 
 
 @pytest.mark.requires_cuda
@@ -336,10 +459,18 @@ def test_nms_and_matching_card_equals_cpu(cuda):
             assert torch.equal(c.cpu(), g)
 
 
+# aligned rows (W * 3 a multiple of 16: 16-float items) and unaligned
+# ones (scalar items), tiles in registers and tiles past them (a second
+# read), edge tiles in both directions, and one 1080p frame
+FRAME_DELTA_CASES = [(64, 128, (16, 128)), (100, 200, (16, 128)),
+                     (37, 53, (8, 16)), (40, 160, (8, 16)),
+                     (48, 256, (16, 64)), (37, 53, (16, 64)),
+                     (70, 130, (16, 128)), (64, 512, (64, 256)),
+                     (50, 300, (32, 100)), (1080, 1920, (16, 128))]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("h,w,tile", [(64, 128, (16, 128)),
-                                      (100, 200, (16, 128)),
-                                      (37, 53, (8, 16))])
+@pytest.mark.parametrize("h,w,tile", FRAME_DELTA_CASES)
 def test_frame_delta_kernel_on_card(cuda, h, w, tile):
     gen = torch.Generator().manual_seed(h)
     cur = torch.rand(h, w, 3, generator=gen)
@@ -382,6 +513,13 @@ def _empty_search(name, d):
                              torch.zeros(0, device=d), 0.0)
 
 
+def _empty_oracle(d):
+    """oracle_pass over zero cameras."""
+    args, kw = oracle_args(oracle_state(0, 14, 8, 0), SceneSpec(), 4,
+                           device=d)
+    return oracle_pass(*args, **kw)
+
+
 EMPTY_CASES = {
     "shape_search": lambda d: _empty_search("shape_search", d),
     "budget_walk": lambda d: _empty_search("budget_walk", d),
@@ -393,6 +531,7 @@ EMPTY_CASES = {
                                          torch.zeros(16, 128, 0, device=d)),
     "rmsnorm": lambda d: rmsnorm(torch.zeros(0, 64, device=d),
                                  torch.ones(64, device=d)),
+    "oracle_pass": lambda d: _empty_oracle(d),
 }
 
 
@@ -406,7 +545,7 @@ def test_empty_input_launches_nothing(cuda, name):
     assert _lib.launch_counts()[name] == 0
     if name == "frame_delta":
         assert out[0].numel() == 0 and int(out[1].abs().sum()) == 0
-    elif name == "budget_walk":
+    elif name in ("budget_walk", "oracle_pass"):
         assert all(x.numel() == 0 for x in out)
     else:
         assert out.numel() == 0

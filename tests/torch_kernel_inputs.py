@@ -37,15 +37,15 @@ def neighbor_inputs(b, seed):
     return shape, has, cent, head
 
 
-def rasterize_inputs(f, p, seed):
+def rasterize_inputs(f, p, seed, m=M):
     rng = np.random.default_rng(seed)
-    ox = rng.uniform(0, 150, (f, M)).astype(np.float32)
-    oy = rng.uniform(0, 75, (f, M)).astype(np.float32)
-    ow = rng.uniform(1.0, 9.0, (f, M)).astype(np.float32)
-    oh = rng.uniform(1.0, 9.0, (f, M)).astype(np.float32)
+    ox = rng.uniform(0, 150, (f, m)).astype(np.float32)
+    oy = rng.uniform(0, 75, (f, m)).astype(np.float32)
+    ow = rng.uniform(1.0, 9.0, (f, m)).astype(np.float32)
+    oh = rng.uniform(1.0, 9.0, (f, m)).astype(np.float32)
     ow[:, -2:] = oh[:, -2:] = 0.0                  # disabled slots
-    draw = rng.uniform(0, 1.2, (f, p, M)).astype(np.float32)
-    draw[rng.random((f, p, M)) < 0.2] = 2.0
+    draw = rng.uniform(0, 1.2, (f, p, m)).astype(np.float32)
+    draw[rng.random((f, p, m)) < 0.2] = 2.0
     a0 = rng.uniform(0.03, 0.1, p).astype(np.float32)
     a1 = (a0 + rng.uniform(0.05, 0.2, p)).astype(np.float32)
     win = window_arrays(DEFAULT_GRID)
@@ -127,3 +127,113 @@ def search_state(grid, f, seed):
     cent = (np.asarray(grid.centers, np.float32)[None]
             + rng.normal(0, 6, (f, n, 2))).astype(np.float32)
     return shape, _labels(rng, f, n), has, cent
+
+
+# the oracle pass: workloads of 1, 4 and 8 teacher pairs, each query
+# list mixing binary and count-like tasks (the 8-pair one names a pair
+# twice, so Q > P)
+ORACLE_WORKLOADS = {
+    1: (("ssd", "car", "binary"),),
+    4: (("yolov4", "person", "count"), ("ssd", "car", "detect"),
+        ("frcnn", "person", "binary"),
+        ("tiny-yolov4", "person", "agg_count")),
+    8: tuple((model, obj, task) for (model, obj), task in zip(
+        [(m, o) for m in ("frcnn", "yolov4", "ssd", "tiny-yolov4")
+         for o in ("person", "car")],
+        ("binary", "count", "detect", "agg_count") * 2))
+    + (("ssd", "person", "binary"),),
+}
+
+
+def oracle_workload(n_pairs):
+    """(pairs, task_id, pair_idx) of the port's WorkloadSpec."""
+    from repro_torch.core.rank import Query, Workload
+    from repro_torch.fleet.state import workload_spec
+    wl = workload_spec(Workload(tuple(
+        Query(m, o, task) for m, o, task in ORACLE_WORKLOADS[n_pairs])))
+    return wl.pairs, wl.task_id, wl.pair_idx
+
+
+def oracle_state(f, n_people, n_cars, seed, *, enabled_p=0.85):
+    """A seeded fleet state for the oracle pass (numpy): objects over the
+    whole extent, from specks below every teacher's floor to boxes wider
+    than a zoomed window; ids, camera salts (full uint32 range) and
+    frame clocks that cross flicker buckets."""
+    rng = np.random.default_rng(seed)
+    m = n_people + n_cars
+    pos = rng.uniform([0, 0], [150, 75], (f, m, 2)).astype(np.float32)
+    size = rng.uniform(2.5, 9.0, (f, m, 2)).astype(np.float32)
+    size[rng.random((f, m)) < 0.1] *= np.float32(0.1)
+    size[rng.random((f, m)) < 0.05] *= np.float32(4.0)
+    return dict(
+        pos=pos, size=size,
+        oid=rng.integers(0, 2 ** 31 - 1, (f, m)).astype(np.int64),
+        enabled=rng.random((f, m)) < enabled_p,
+        cam_salt=rng.integers(0, 2 ** 32, f, dtype=np.uint64).astype(
+            np.int64),
+        t=rng.integers(0, 40, f).astype(np.int64))
+
+
+def oracle_args(st, spec, n_pairs, device="cpu"):
+    """The port's observe_all_cells arguments for a numpy state:
+    (spec, teach, params, state, t, windows) and the keywords."""
+    from repro_torch.scene import observe as tobs
+    from repro_torch.scene import scene as tscene
+    pairs, task_id, pair_idx = oracle_workload(n_pairs)
+    f, m = st["oid"].shape
+
+    def dv(x):
+        return t(x).to(device)
+
+    zeros2 = torch.zeros((f, m, 2), device=device)
+    state = tscene.SceneState(
+        pos=dv(st["pos"]), vel=zeros2, size=dv(st["size"]),
+        waypoint=zeros2, oid=dv(st["oid"]),
+        next_id=torch.full((f,), m, dtype=torch.int64, device=device))
+    zf = torch.zeros(f, device=device)
+    params = tscene.SceneFleetParams(
+        person_speed=zf, car_speed=zf, churn=zf,
+        poi=torch.zeros((f, spec.n_poi, 2), device=device),
+        enabled=torch.as_tensor(st["enabled"], device=device))
+    teach = tobs.teacher_arrays(pairs, device=device)
+    windows = tobs.grid_windows(DEFAULT_GRID, device=device)
+    return ((spec, teach, params, state, dv(st["t"]), windows),
+            dict(task_id=task_id, pair_idx=pair_idx,
+                 cam_salt=dv(st["cam_salt"])))
+
+
+def oracle_variance_f64(args, kw):
+    """The variance E[c^2] - |E[c]|^2 of every window, [F, N, Z] float64:
+    the oracle pass's own float32 per-object terms (its detections and
+    clipped centers, from the plain version's pieces) summed in float64,
+    0 where no box is counted. The reference the float32 spreads of the
+    kernel and of the plain version are measured against."""
+    from repro_torch.kernels.cell_rasterize.ops import window_geometry
+    from repro_torch.kernels.oracle_pass.ops import oracle_draws
+    spec, teach, params, state, t_, windows = args
+    f = state.oid.shape[0]
+    p = teach.a0.shape[0]
+    detf, _, ccx, ccy, _ = window_geometry(
+        state.pos[..., 0].contiguous(), state.pos[..., 1].contiguous(),
+        state.size[..., 0].contiguous(), state.size[..., 1].contiguous(),
+        oracle_draws(spec, teach, params, state, t_, kw.get("cam_salt")),
+        teach.a0.repeat(2), teach.a1.repeat(2), windows,
+        min_visible=spec.min_visible)
+    mult = detf[:, :p].sum(1).double()                 # [F, M, C]
+    cx, cy = ccx.double(), ccy.double()
+    nb = mult.sum(1)
+    nbc = nb.clamp(min=1e-9)
+    ex, ey = (mult * cx).sum(1) / nbc, (mult * cy).sum(1) / nbc
+    var = (mult * (cx * cx + cy * cy)).sum(1) / nbc - ex * ex - ey * ey
+    return torch.where(nb > 0, var, 0.0).reshape(f, -1, kw.get("n_zoom", 3))
+
+
+def spread_errors(got, want, var64):
+    """(max |got var - var64|, max |want var - var64|, max |got var - want
+    var|, windows where |got var - want var| > 1e-2), each variance read
+    as spread^2 in float64 against var64 clamped at 0 as the spread is."""
+    g = got.spread.double() ** 2
+    w = want.spread.double() ** 2
+    v = var64.clamp(min=0.0)
+    return (float((g - v).abs().max()), float((w - v).abs().max()),
+            float((g - w).abs().max()), int(((g - w).abs() > 1e-2).sum()))

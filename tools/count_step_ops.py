@@ -4,13 +4,15 @@
         [--cameras 64] [--steps 3]
 
 Drives run_fleet(FleetRunSpec(provider="scene")) with a dispatch-mode
-counter on and splits the ops dispatched inside fleet_step into the
-shape search (shape_search_batch: evolve + resize), the budget walk
-(budget_walk_batch: shrink to the time budget) and the rest of the
-step. Prints the mean per step (warm-up step included) as one JSON line.
-On CPU tensors the two searches run their plain versions (the loops the
-card ran before they became kernels); on the card each is one kernel
-launch (through ctypes, not a PyTorch op) plus its output allocations.
+counter on and splits the ops of one step by phase: the scene advance
+(advance_scene), the oracle pass (observe_all_cells) and, inside
+fleet_step, the shape search (shape_search_batch: evolve + resize), the
+budget walk (budget_walk_batch: shrink to the time budget) and the rest
+of the step. Prints the mean per step (warm-up step included) as one
+JSON line. On CPU tensors the oracle pass and the two searches run their
+plain versions (what the card ran before they became kernels); on the
+card each is one kernel launch (through ctypes, not a PyTorch op) plus
+its output allocations.
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ def main() -> int:
     a = ap.parse_args()
     counter = OpCounter()
     saved = (runner.fleet_step, step.shape_search_batch,
-             step.budget_walk_batch)
+             step.budget_walk_batch, runner.advance_scene,
+             runner.observe_all_cells)
 
     def counted_step(*args, **kwargs):
         counter.steps += 1
@@ -69,13 +72,15 @@ def main() -> int:
     runner.fleet_step = counted_step
     step.shape_search_batch = counter.in_phase("shape_search", saved[1])
     step.budget_walk_batch = counter.in_phase("budget_walk", saved[2])
+    runner.advance_scene = counter.in_phase("scene_advance", saved[3])
+    runner.observe_all_cells = counter.in_phase("oracle", saved[4])
     try:
         with counter:
             run_fleet(FleetRunSpec(provider="scene", n_cameras=a.cameras,
                                    n_steps=a.steps), device=a.device)
     finally:
-        runner.fleet_step, step.shape_search_batch, \
-            step.budget_walk_batch = saved
+        (runner.fleet_step, step.shape_search_batch, step.budget_walk_batch,
+         runner.advance_scene, runner.observe_all_cells) = saved
     per_step = {k: v / counter.steps for k, v in counter.counts.items()}
     print(json.dumps({"device": a.device, "cameras": a.cameras,
                       "fleet_step_calls": counter.steps,
