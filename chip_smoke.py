@@ -13,7 +13,7 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      cell_rasterize (the kernel API the oracle pass used to launch) and
      crop_patchify at the main path's shapes, then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
-     with q_offset, bf16), box_iou, nms_mask/match_boxes (card vs CPU),
+     with q_offset, bf16, and 192- and 256-wide heads), box_iou (bit-equal),
      frame_delta and rmsnorm at full-size shapes — and time each with
      CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call; kernels whose device time is near or
@@ -43,16 +43,25 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      neck, heads and decode, and features and detections must agree;
   7. drive the kernel APIs (box_iou, nms_mask, match_boxes, frame_delta
      over one 1080p frame per camera, rmsnorm) with the counters set to
-     0 just before and read just after;
-  8. time one step of the main path stage by stage (the scene advance
+     0 just before and read just after; then time box_iou on those
+     detections (the dense case) and nms_mask / match_boxes per call;
+  8. drive the main path past the kernels' old limits: run_fleet at full
+     width on the 200-cell 7.5-degree grid with a 40-slot scene, 16
+     cameras, 3 steps, counters set to 0 just before and read just
+     after (crop_patchify, oracle_pass, shape_search and budget_walk
+     once per step, each call equal to its plain version); the same
+     spec at 2 cameras on the card and on the CPU must decide alike;
+     oracle_pass on a 256-slot scene;
+  9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart);
-  9. print one JSON line describing every kernel, the card line again,
+ 10. print one JSON line describing every kernel, the card line again,
      and as the last line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -73,7 +82,11 @@ from repro_torch.fleet.api import (  # noqa: E402
     prepare_fleet_run,
     run_fleet,
 )
-from repro_torch.fleet.state import fleet_config, fleet_statics  # noqa: E402
+from repro_torch.fleet.state import (  # noqa: E402
+    fleet_config,
+    fleet_statics,
+    workload_spec,
+)
 from repro_torch.fleet import step as step_module  # noqa: E402
 from repro_torch.fleet.step import FleetObs, fleet_step  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
@@ -86,6 +99,9 @@ from repro_torch.kernels.box_iou.ops import (  # noqa: E402
 from repro_torch.kernels.cell_rasterize.ops import (  # noqa: E402
     cell_rasterize,
     cell_rasterize_plain,
+)
+from repro_torch.kernels.crop_patchify import (  # noqa: E402
+    ops as patchify_module,
 )
 from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
     crop_patchify_batch,
@@ -129,6 +145,7 @@ from repro_torch.scene.observe import (  # noqa: E402
     detections_obs,
     grid_windows,
     observe_all_cells,
+    teacher_arrays,
 )
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
@@ -163,6 +180,14 @@ TENSOR_CORE_KERNELS = ("crop_patchify", "flash_attention")
 # 80 dims, MHA), batch 2 at a 4096-token context
 STABLELM_ATTN = dict(b=2, s=4096, h=32, d=80)
 N_BOX_CAMERAS = 16      # box_iou: one step's detections of 16 cameras
+# past the kernels' old limits: the 7.5-degree grid (200 cells, four-word
+# cell sets), a 40-slot scene (two ownership words), 16 cameras
+BIG_GRID = {"pan_step": 7.5, "tilt_step": 7.5}
+BIG_SCENE = dict(max_people=24, max_cars=16)
+BIG_CAMERAS, BIG_STEPS = 16, 3
+# flash attention past 128 head dims (the MLA configs' 192-wide query /
+# key heads, src/repro/configs/deepseek_v3_671b.py, and 256)
+WIDE_ATTN = dict(b=2, s=1024, h=8)
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -413,21 +438,29 @@ def kernel_phase(dev) -> dict:
     want = (crop_patchify_plain(*cp_args, **cp_kw),)
     torch.cuda.synchronize()
     check_close("crop_patchify", got, want, atol=1e-4)
-    f, k = cp_args[5].shape[:2]
-    res, patch = cp_kw["res"], cp_kw["patch"]
-    depth, d = cp_args[7].shape
-    gg = (res // patch) ** 2
-    n_bytes = 4 * (4 * f * m + 3 * f * m + f * k * 4 + f * res * res * 3
-                   + depth * d + d + f * k * gg * d)
     rows["crop_patchify"] = dict(
         max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: crop_patchify_batch(*cp_args, **cp_kw), 10),
         plain_ms=cuda_ms(lambda: crop_patchify_plain(*cp_args, **cp_kw),
                          5),
-        bound=split_tf32_bound(n_bytes, 2.0 * f * k * gg * depth * d))
+        bound=patchify_bound(cp_args, cp_kw))
     for name, r in rows.items():
         print_row(name, r)
     return rows
+
+
+def patchify_bound(cp_args, cp_kw) -> tuple[float, str, str]:
+    """crop_patchify's bound on its arguments: the object strips,
+    colours, windows, plane and weights read once and the tokens written
+    once, against the split-TF32 product."""
+    f, m = cp_args[0].shape
+    k = cp_args[5].shape[-2]
+    res, patch = cp_kw["res"], cp_kw["patch"]
+    depth, d = cp_args[7].shape
+    gg = (res // patch) ** 2
+    n_bytes = 4 * (4 * f * m + 3 * f * m + f * k * 4 + f * res * res * 3
+                   + depth * d + d + f * k * gg * d)
+    return split_tf32_bound(n_bytes, 2.0 * f * k * gg * depth * d)
 
 
 def print_row(name: str, r: dict) -> None:
@@ -541,8 +574,15 @@ def new_kernel_phase(dev) -> dict:
                causal=True, iters=5, plain_iters=2, library=True)
     flash_case(dev, 4, 100, 164, 8, 2, 64, causal=True, q_offset=64)
     flash_case(dev, 64, 256, 256, 8, 8, 64, dtype=torch.bfloat16)
+    wa = WIDE_ATTN
+    for d in (192, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_case(dev, wa["b"], wa["s"], wa["s"], wa["h"], wa["h"], d,
+                       causal=True, dtype=dtype, iters=10, plain_iters=2,
+                       library=True)
 
-    # box_iou: the same float32 ops in the same order -> 1e-6
+    # box_iou: the same float32 ops in the same order (a division skipped
+    # where inter == 0 is exact) -> bit-equal
     n = N_BOX_CAMERAS * SHORTLIST_K * 32
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -552,20 +592,7 @@ def new_kernel_phase(dev) -> dict:
                                                   device=dev)], 1)
 
     a, b = boxes(), boxes()
-    got, want = box_iou(a, b), box_iou_plain(a, b)
-    torch.cuda.synchronize()
-    check_close("box_iou", (got,), (want,), atol=1e-6)
-    # ~13 operations per pair (4 min/max, 4 sub/add, 2 clamps, 1 product,
-    # 1 max, 1 division)
-    rows["box_iou"] = dict(
-        max_abs_err=max_err((got,), (want,)),
-        ms=cuda_ms(lambda: box_iou(a, b), 50),
-        graph_ms=graph_ms(lambda: box_iou(a, b), 50),
-        plain_ms=cuda_ms(lambda: box_iou_plain(a, b), 10),
-        bound=bound(4 * (4 * n + 4 * n + n * n), 13.0 * n * n),
-        library_ms=None)
-    del got, want
-    print_row("box_iou", rows["box_iou"])
+    rows["box_iou"] = box_iou_row(a, b, "random boxes")
 
     # frame_delta on one 1080p frame
     cur, prev = (x[0] for x in delta_frames(1, dev, 2))
@@ -605,6 +632,39 @@ def new_kernel_phase(dev) -> dict:
                                               eps=1e-6), 20))
     print_row("rmsnorm", rows["rmsnorm"])
     return rows
+
+
+def box_iou_row(a, b, label: str) -> dict:
+    """box_iou bit-equal to its plain version on a [N, 4] x [M, 4], timed
+    beside its bound (the [N, M] float32 output written once); prints
+    the share of pairs that intersect (a division each) and of the
+    bound."""
+    got, want = box_iou(a, b), box_iou_plain(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"box_iou ({label}): not bit-equal to the "
+                             f"plain version (max abs err "
+                             f"{max_err((got,), (want,))})")
+    n, m = a.shape[0], b.shape[0]
+    hit = float((got > 0).float().mean())
+    del want
+    # the yardstick of a store stream: a write-only pass over the output
+    zero_ms = cuda_ms(got.zero_, 50)
+    del got
+    # ~13 operations per pair (4 min/max, 4 sub/add, 2 clamps, 1 product,
+    # 1 max, 1 division)
+    row = dict(max_abs_err=0.0, ms=cuda_ms(lambda: box_iou(a, b), 50),
+               graph_ms=graph_ms(lambda: box_iou(a, b), 50),
+               plain_ms=cuda_ms(lambda: box_iou_plain(a, b), 10),
+               bound=bound(4 * (4 * n + 4 * m + n * m), 13.0 * n * m),
+               library_ms=None)
+    print(f"box_iou ({label}, {n} x {m}): bit-equal to the plain version; "
+          f"{hit:.3f} of the pairs intersect; graph_ms at "
+          f"{row['bound'][0] / row['graph_ms']:.3f} of the bound; a "
+          f"write-only Tensor.zero_ of the output {zero_ms:.4f} ms",
+          flush=True)
+    print_row("box_iou", row)
+    return row
 
 
 def small_parity_phase() -> None:
@@ -681,6 +741,30 @@ class OracleRecorder:
         observe_module.oracle_pass = self.saved
 
 
+class PatchifyRecorder:
+    """While active, records the arguments and result of every
+    crop_patchify kernel call (clones, by wrapping crop_patchify_batch,
+    the name kernels/crop_patchify/ops.crop_patchify calls). The wrapped
+    call is the wrapper itself, launched once as always."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = patchify_module.crop_patchify_batch
+
+        def recorded(*args, **kwargs):
+            out = self.saved(*args, **kwargs)
+            self.calls.append((_clone(args), _clone(kwargs), out.clone()))
+            return out
+
+        patchify_module.crop_patchify_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        patchify_module.crop_patchify_batch = self.saved
+
+
 def _clone(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
@@ -738,7 +822,7 @@ def main_path_phase(spec: FleetRunSpec):
     return result, counts, rec.calls, orec.calls
 
 
-def oracle_phase(calls) -> dict:
+def oracle_phase(calls, steps: int = N_STEPS + 1, tag: str = "") -> dict:
     """oracle_pass against its plain version on the inputs of every step
     of the main-path episode: counts, nbox and acc_true exactly equal;
     areas, centroid and extent within 1e-5 (absolute + relative: float32
@@ -746,9 +830,9 @@ def oracle_phase(calls) -> dict:
     variance (it cancels: the tolerance of the CPU tests against the JAX
     package). Timed on the last step's inputs (ms: Python calls;
     graph_ms: a CUDA graph of the calls). Returns its row."""
-    if len(calls) != N_STEPS + 1:
+    if len(calls) != steps:
         raise AssertionError(f"oracle_pass: {len(calls)} calls recorded, "
-                             f"want {N_STEPS + 1}")
+                             f"want {steps}")
     errs = {k: 0.0 for k in ("areas", "centroid", "extent", "spread")}
     for step, (args, kw, got) in enumerate(calls):
         want = oracle_pass_plain(*args, **kw)
@@ -792,15 +876,16 @@ def oracle_phase(calls) -> dict:
                bound=bound(n_bytes, n_ops), library_ms=None)
     exact = all(torch.equal(getattr(got, k), getattr(want, k))
                 for k in errs)
-    print(f"oracle_pass: kernel and plain agree on all {len(calls)} steps "
+    print(f"oracle_pass{tag}: kernel and plain agree on all {len(calls)} "
+          f"steps "
           f"of the episode (counts, nbox, acc_true exact; max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f"; last step's floats exactly equal: {exact})", flush=True)
-    print_row("oracle_pass", row)
+    print_row("oracle_pass" + tag, row)
     return row
 
 
-def search_phase(calls) -> dict:
+def search_phase(calls, steps: int = N_STEPS + 1, tag: str = "") -> dict:
     """shape_search and budget_walk against their plain versions on the
     inputs of every step of the main-path episode: masks, walk orders and
     counts exactly equal, the walk time within 1e-6 relative (its hop sum
@@ -813,9 +898,9 @@ def search_phase(calls) -> dict:
                 "budget_walk_batch": budget_walk_batch}
     for name, recorded in calls.items():
         kernel = name[:-len("_batch")]
-        if len(recorded) != N_STEPS + 1:
+        if len(recorded) != steps:
             raise AssertionError(f"{kernel}: {len(recorded)} calls recorded, "
-                                 f"want {N_STEPS + 1}")
+                                 f"want {steps}")
         err = 0.0
         for step, (cfg, statics, args, got) in enumerate(recorded):
             want = plains[name](cfg, statics, *args)
@@ -849,9 +934,9 @@ def search_phase(calls) -> dict:
             # a search that may stop at its first test needs no fixed
             # count of operations: the bound is the bytes
             bound=bound(n_bytes, 0.0), library_ms=None)
-        print(f"{kernel}: kernel and plain decide alike on all "
+        print(f"{kernel}{tag}: kernel and plain decide alike on all "
               f"{len(recorded)} steps of the episode", flush=True)
-        print_row(kernel, rows[kernel])
+        print_row(kernel + tag, rows[kernel])
     return rows
 
 
@@ -913,6 +998,104 @@ def random_search_phase(dev) -> None:
                          f"{ss_ms:.4f} budget_walk {bw_ms:.4f}")
     print("search kernels on random states, graph_ms per call: "
           + "; ".join(times), flush=True)
+
+
+def beyond_limits_phase(dev) -> None:
+    """The main path past the kernels' old limits: run_fleet(provider=
+    "detector") at full width on the 200-cell grid with a 40-slot scene,
+    BIG_CAMERAS cameras, BIG_STEPS steps (+1 warm-up), counters set to 0
+    just before and read just after: crop_patchify, oracle_pass,
+    shape_search and budget_walk launch once per step, and every
+    recorded call equals its plain version on the same inputs on the
+    card, each timed on its last call. Then the same spec at 2 cameras
+    with the smoke detector on the card and on the CPU must decide
+    alike, and oracle_pass runs a 256-slot scene."""
+    steps = BIG_STEPS + 1
+    spec = FleetRunSpec(
+        provider="detector", n_cameras=BIG_CAMERAS, n_steps=BIG_STEPS,
+        shortlist_k=SHORTLIST_K, grid=BIG_GRID,
+        provider_kwargs={"det_cfg": get_config("madeye-approx"),
+                         "spec": SceneSpec(**BIG_SCENE)})
+    n_cells = OrientationGrid(**BIG_GRID).n_cells
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with (SearchRecorder() as rec, OracleRecorder() as orec,
+          PatchifyRecorder() as prec):
+        result = run_fleet(spec)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    uneven = [k for k in MAIN_PATH_KERNELS if counts[k] != steps]
+    stray = [k for k, v in counts.items()
+             if v and k not in MAIN_PATH_KERNELS]
+    if uneven or stray:
+        raise AssertionError(f"beyond the old limits: launches {counts}, "
+                             f"want {MAIN_PATH_KERNELS} x {steps} only")
+    chosen = torch.tensor(result.chosen)
+    acc = torch.tensor(result.acc_per_step)
+    if (chosen.shape != (BIG_STEPS, BIG_CAMERAS)
+            or not bool(((chosen >= 0) & (chosen < n_cells)).all())
+            or not bool(((acc >= 0) & (acc <= 1)).all())):
+        raise AssertionError(f"beyond the old limits: malformed result "
+                             f"{result.chosen} {result.acc_per_step}")
+    print(f"beyond the old limits: {n_cells} cells, "
+          f"{sum(BIG_SCENE.values())} slots, {BIG_CAMERAS} cameras x "
+          f"{BIG_STEPS} steps: accuracy={result.accuracy:.6f} "
+          f"frames_sent={list(result.frames_sent)} launches={counts}",
+          flush=True)
+    tag = f"[{n_cells} cells, M={sum(BIG_SCENE.values())}]"
+    oracle_phase(orec.calls, steps, tag)
+    search_phase(rec.calls, steps, tag)
+    err = 0.0
+    for step, (args, kw, got) in enumerate(prec.calls):
+        want = crop_patchify_plain(*args, **kw)
+        check_close(f"crop_patchify step {step}", (got,), (want,),
+                    atol=1e-4)
+        err = max(err, max_err((got,), (want,)))
+    if len(prec.calls) != steps:
+        raise AssertionError(f"crop_patchify: {len(prec.calls)} calls "
+                             f"recorded, want {steps}")
+    args, kw, _ = prec.calls[-1]
+    print(f"crop_patchify{tag}: kernel and plain agree on all {steps} "
+          f"steps (max abs err {err:.3e})", flush=True)
+    print_row("crop_patchify" + tag, dict(
+        max_abs_err=err, ms=cuda_ms(lambda: crop_patchify_batch(*args, **kw),
+                                    10),
+        plain_ms=cuda_ms(lambda: crop_patchify_plain(*args, **kw), 3),
+        bound=patchify_bound(args, kw), library_ms=None))
+
+    # the same spec, 2 cameras, the smoke detector: card vs CPU
+    small = dataclasses.replace(spec, n_cameras=2, provider_kwargs={
+        "spec": SceneSpec(**BIG_SCENE)})
+    on_card, on_cpu = run_fleet(small), run_fleet(small, device="cpu")
+    same = (on_card.chosen == on_cpu.chosen
+            and on_card.frames_sent == on_cpu.frames_sent
+            and all(torch.equal(getattr(on_card.out, k).cpu(),
+                                getattr(on_cpu.out, k))
+                    for k in ("explored", "order", "zooms", "sent")))
+    if not same:
+        raise AssertionError(f"beyond the old limits: card vs CPU "
+                             f"decisions differ: {on_card.chosen} vs "
+                             f"{on_cpu.chosen}")
+    print(f"beyond the old limits, small input: card and CPU agree "
+          f"(chosen {on_card.chosen})", flush=True)
+
+    # oracle_pass on a 256-slot scene (8 chunks of 32 objects)
+    sspec = SceneSpec(max_people=128, max_cars=128)
+    params, rng = scene_fleet_params(sspec, N_CAMERAS, device=dev)
+    sc = advance_scene(sspec, params, rng, init_scene(sspec, params, rng),
+                       2, 4)
+    wl = workload_spec(FleetRunSpec().workload_obj())
+    teach = teacher_arrays(wl.pairs, device=dev)
+    oargs = (sspec, teach, params, sc,
+             torch.full((N_CAMERAS,), 6, dtype=torch.int64, device=dev),
+             grid_windows(DEFAULT_GRID, device=dev))
+    okw = dict(task_id=wl.task_id, pair_idx=wl.pair_idx, n_zoom=3,
+               cam_salt=rng[:, 0])
+    _lib.reset_launch_counts()
+    got = oracle_pass(*oargs, **okw)
+    if _lib.launch_counts()["oracle_pass"] != 1:
+        raise AssertionError("oracle_pass at 256 slots did not launch")
+    oracle_phase([(oargs, okw, got)], 1, "[25 cells, M=256]")
 
 
 def vit_flash_phase(spec: FleetRunSpec):
@@ -1036,6 +1219,25 @@ def kernel_api_phase(dev, dets) -> dict:
           f" of {deltas[0][1].numel()}, flipped against the plain version "
           f"{sum(f for _, f in fd)} (max |int8 difference| "
           f"{max(e for e, _ in fd)})", flush=True)
+
+    # after the counted run: box_iou on the same detections (boxes of
+    # one image space, so most pairs intersect: the case to judge the
+    # kernel by), and nms_mask / match_boxes per call over one crop's 32
+    # boxes and over 18 crops' 576
+    box_iou_row(boxes, boxes, "one step's detections")
+    flat = dets.boxes[:SHORTLIST_K].reshape(-1, 4).contiguous()
+    flat_sc = dets.scores[:SHORTLIST_K].reshape(-1).contiguous()
+    times = []
+    for bx, sc in ((crops[0][0], crops[1][0]), (flat, flat_sc)):
+        nv = sc > 0
+        nms = cuda_ms(lambda: nms_mask(bx, sc, nv), 3)
+        match = cuda_ms(lambda: match_boxes(bx, bx.flip(0), nv,
+                                            iou_thresh=0.3), 3)
+        times.append(f"N={bx.shape[0]}: nms_mask {nms:.3f} ms, "
+                     f"match_boxes {match:.3f} ms")
+    print("nms_mask / match_boxes per call (CUDA events, one box_iou "
+          "launch + N PyTorch rounds each): " + "; ".join(times),
+          flush=True)
     return counts
 
 
@@ -1129,6 +1331,7 @@ def main() -> int:
     api_counts = kernel_api_phase(dev, dets)
     for name in ("box_iou", "frame_delta", "rmsnorm"):
         counts[name] = api_counts[name]
+    beyond_limits_phase(dev)
     stage_phase(spec)
 
     kernels = []

@@ -26,7 +26,9 @@
 // channel, the moments summed by a warp butterfly, every accumulator in
 // a register; blocks of 8 windows, so a camera spreads
 // over ceil(C / 8) blocks (640 blocks for 64 cameras x 75 windows). Each
-// block stages its camera's object strips and draws in shared memory.
+// block stages its camera's object strips and draws in dynamic shared
+// memory sized by M (up to 256 objects, 20 KB at 16 channels). The
+// moments are absolute: measured from the origin (0, 0).
 #include "cell_rasterize.cuh"
 #include "common.cuh"
 
@@ -45,9 +47,12 @@ __global__ void __launch_bounds__(kWarps * raster::kWarp)
         float* __restrict__ wcx, float* __restrict__ wcy,
         float* __restrict__ wc2, float* __restrict__ ext, int n_obj,
         int n_chan, int n_win, int n_moment, float min_visible) {
-  __shared__ float s_ox[raster::kMaxObjects], s_oy[raster::kMaxObjects];
-  __shared__ float s_ow[raster::kMaxObjects], s_oh[raster::kMaxObjects];
-  __shared__ float s_draw[kMaxChannels * raster::kMaxObjects];
+  extern __shared__ float s_obj[];   // ox, oy, ow, oh [M]; draw [P][M]
+  float* s_ox = s_obj;
+  float* s_oy = s_ox + n_obj;
+  float* s_ow = s_oy + n_obj;
+  float* s_oh = s_ow + n_obj;
+  float* s_draw = s_oh + n_obj;
   __shared__ float s_a0[kMaxChannels], s_span[kMaxChannels];
   __shared__ float2 s_stage[kWarps][raster::kWarp];
   const int b = blockIdx.x;
@@ -74,7 +79,7 @@ __global__ void __launch_bounds__(kWarps * raster::kWarp)
                                  windows[4 * c + 2], windows[4 * c + 3]);
   const raster::WindowSums s = raster::rasterize_window(
       s_ox, s_oy, s_ow, s_oh, s_draw, s_a0, s_span, n_obj, n_chan, n_moment,
-      win, min_visible, s_stage[warp]);
+      win, make_float2(0.0f, 0.0f), min_visible, s_stage[warp]);
   if (lane < n_chan) {
     cnt[(b * n_chan + lane) * n_win + c] = s.cnt;
     area[(b * n_chan + lane) * n_win + c] = s.area;
@@ -101,7 +106,8 @@ REPRO_EXTERN int cell_rasterize_launch(
   }
   if (batch == 0 || n_win == 0) return 0;
   const dim3 grid(batch, win_blocks);
-  cell_rasterize_kernel<<<grid, kWarps * raster::kWarp, 0,
+  const size_t smem = sizeof(float) * (4 + n_chan) * n_obj;
+  cell_rasterize_kernel<<<grid, kWarps * raster::kWarp, smem,
                           as_stream(stream)>>>(
       ox, oy, ow, oh, draw, a0, a1, windows, cnt, area, wcx, wcy, wc2, ext,
       n_obj, n_chan, n_win, n_moment, min_visible);

@@ -20,14 +20,19 @@
 // channels are summed across the warp by a butterfly (a pairwise tree
 // over the chunk's 32 objects, every lane ending with the same sums),
 // chunks in order: the spread E[c^2] - |E[c]|^2 cancels, so its sums
-// take the more accurate order. Every accumulator lives in a register.
+// take the more accurate order. The moments are of the centers taken
+// from an origin the caller gives: (0, 0) for the absolute moments of
+// the cell_rasterize API; the window's center in the oracle pass, where
+// the centers lie within half a window of it, so the variance E[d^2] -
+// |E[d]|^2 of d = c - origin cancels little. Every accumulator lives in
+// a register; the chunk loop runs as many 32-object chunks as M needs.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace raster {
 
-constexpr int kMaxObjects = 128;
+constexpr int kMaxObjects = 256;
 constexpr int kWarp = 32;
 
 struct Clip {
@@ -73,7 +78,8 @@ __device__ __forceinline__ bool ramp_detects(float draw, float apparent,
 struct WindowSums {
   float cnt, area;  // channel `lane` (meaningful on lanes < n_chan)
   float nbox;       // sum over objects of the moment multiplicity
-  float sx, sy, s2; // multiplicity-weighted sum cx, cy, cx^2 + cy^2
+  float sx, sy, s2; // multiplicity-weighted sum dx, dy, dx^2 + dy^2 of
+                    // the centers d = c - origin
   float ext;        // max clipped side over objects with multiplicity
 };
 
@@ -96,12 +102,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // Called by all 32 lanes of a warp. s_ox/s_oy/s_ow/s_oh [n_obj] and
 // s_draw [n_chan][n_obj], s_a0/s_span [n_chan]: the camera's objects,
 // draws and ramps in shared memory. stage: the warp's 32 float2 of
-// shared memory. n_chan <= 32 (one lane per channel).
+// shared memory. n_chan <= 32 (one lane per channel). origin: where the
+// moments' centers are measured from.
 __device__ __forceinline__ WindowSums rasterize_window(
     const float* s_ox, const float* s_oy, const float* s_ow,
     const float* s_oh, const float* s_draw, const float* s_a0,
     const float* s_span, int n_obj, int n_chan, int n_moment, float4 win,
-    float min_visible, float2* stage) {
+    float2 origin, float min_visible, float2* stage) {
   const int lane = threadIdx.x % kWarp;
   const unsigned moment_bits =
       n_moment >= kWarp ? 0xffffffffu : (1u << n_moment) - 1u;
@@ -126,9 +133,11 @@ __device__ __forceinline__ WindowSums rasterize_window(
       }
       a_norm = g.a_norm;
       mult = static_cast<float>(__popc(bits & moment_bits));
-      wx = mult * g.ccx;
-      wy = mult * g.ccy;
-      w2 = mult * (g.ccx * g.ccx + g.ccy * g.ccy);
+      const float dx = g.ccx - origin.x;
+      const float dy = g.ccy - origin.y;
+      wx = mult * dx;
+      wy = mult * dy;
+      w2 = mult * (dx * dx + dy * dy);
       side = mult > 0.0f ? g.side : 0.0f;
     }
     stage[lane] = make_float2(__uint_as_float(bits), a_norm);

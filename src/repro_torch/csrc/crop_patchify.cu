@@ -4,7 +4,7 @@
 // Replaces the TPU kernel `crop_patchify_batch` (body `_make_kernel`) in
 // src/repro/kernels/crop_patchify/crop_patchify.py.
 //
-// For camera f and window k it paints up to M <= 32 object boxes into a
+// For camera f and window k it paints up to M <= 256 object boxes into a
 // res x res x 3 crop over the background-plus-noise plane (last painter
 // wins; only boxes with visibility >= min_visible paint), clips to
 // [0, 1], cuts the crop into (res/p)^2 patches of p*p*3 pixels in
@@ -26,8 +26,12 @@
 //   tiles exactly, where 64-row tiles cut per crop would pad 196 rows to
 //   256 (23% wasted work). A tile straddles crops, so it builds the
 //   ownership masks of every crop it touches (at most 128 / P + 2):
-//   per crop one uint32 row mask and one column mask per pixel line, so
-//   a pixel's owner is 31 - clz(rowbits & colbits).
+//   per crop a row mask and a column mask of W = ceil(M / 32) uint32
+//   words per pixel line (slot 32 w + j is bit j of word w), so a
+//   pixel's owner is the highest set bit of the highest nonzero word of
+//   rowbits & colbits: 31 - clz(rowbits & colbits) at W = 1. W is a
+//   template parameter (1, 2, 4, 8), picked at launch: the main path's
+//   22 slots run the one-word instance.
 // - One block computes its rows against N tile = all D features (192;
 //   64 for D <= 64), so each pixel is painted once.
 // - A comes from registers: each thread paints exactly the pixels of
@@ -44,9 +48,12 @@
 //   order wgmma reads, chunk by chunk, so a 64-deep K chunk of both
 //   halves is one contiguous block: cp.async streams it into a 2-stage
 //   ring while the previous chunk is multiplied.
-// Shared memory holds the ring and, per crop a tile touches, its masks;
-// crops so small that a 128-row tile spans dozens of them (res = 32 at
-// p = 16 with D > 64) do not fit and the launch is refused.
+// Shared memory holds the ring and, per crop a tile touches, its masks,
+// its objects' packed pixel bounds and (W <= 4) their colours; at W = 8
+// the colours are read from global memory (L1), so 256 slots fit beside
+// the 192-wide ring at 224 px. Crops so small that a 128-row tile spans
+// dozens of them (res = 32 at p = 16 with D > 64), or masks past the
+// opt-in budget, do not fit and the launch is refused.
 // The geometry is compiled without FMA contraction so pixel bounds and
 // visibility round exactly like the plain PyTorch version.
 #include <stdint.h>
@@ -56,7 +63,8 @@
 
 namespace {
 
-constexpr int kMaxObjects = 32;   // one uint32 ownership lane per object
+constexpr int kWord = 32;         // object slots per ownership word
+constexpr int kMaxWords = 8;      // up to 256 object slots
 constexpr int kMaxRes = 1024;
 constexpr int kBM = 128;          // rows per block: two warpgroups of 64
 constexpr int kKC = 64;           // K depth of one ring stage
@@ -64,8 +72,13 @@ constexpr int kStages = 2;
 constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;
 
-// per crop of a tile: 5 int geometry arrays and 3 colours per object
-constexpr int kGeoBytes = kMaxObjects * (5 + 3) * 4;
+// per crop of a tile and object slot: the packed row and column bounds
+// (lo | hi << 16, empty where the object does not paint), and 3 colours
+// where they live in shared memory
+template <int W>
+__host__ __device__ constexpr bool colors_in_smem() {
+  return W <= 4;
+}
 
 // per K column of two chunks: (plane offset, pixel row, pixel col,
 // channel) within the patch
@@ -80,13 +93,23 @@ __host__ __device__ inline int crops_per_tile(int n_patch, int n_crops) {
   return c < n_crops ? c : n_crops;
 }
 
+// dynamic shared memory of one block: the ring, the K table, and per
+// crop of the tile its masks and object geometry
+template <int NT, int W>
+constexpr size_t shared_bytes(int n_cmax, int res) {
+  return static_cast<size_t>(ring_bytes(NT)) + kKTabBytes +
+         static_cast<size_t>(n_cmax) *
+             (2 * res * W * 4 +
+              kWord * W * (2 + (colors_in_smem<W>() ? 3 : 0)) * 4);
+}
+
 struct RowInfo {
   int ci;           // crop within the tile; -1 past the last row
   int prow, pcol;   // top-left pixel of the patch
   const float* plane;
 };
 
-template <int NT>
+template <int NT, int W>
 __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ ow, const float* __restrict__ oh,
@@ -98,9 +121,11 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_ring = reinterpret_cast<float*>(smem);
   int4* s_ktab = reinterpret_cast<int4*>(smem + ring_bytes(NT));
-  int* s_geo = reinterpret_cast<int*>(smem + ring_bytes(NT) + kKTabBytes);
+  // [crop][row, col][pixel line][W]
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(
-      smem + ring_bytes(NT) + kKTabBytes + n_cmax * kGeoBytes);
+      smem + ring_bytes(NT) + kKTabBytes);
+  uint32_t* s_geo = s_bits + n_cmax * 2 * res * W;
+  constexpr int kObj = kWord * W;   // object slots per crop
 
   const int tid = threadIdx.x;
   const int g = res / patch;
@@ -126,19 +151,16 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
   tc::cp_async_commit();
 
   // ---- object geometry of every crop the tile touches ----------------
-  int* s_px0 = s_geo;
-  int* s_px1 = s_px0 + n_cmax * kMaxObjects;
-  int* s_py0 = s_px1 + n_cmax * kMaxObjects;
-  int* s_py1 = s_py0 + n_cmax * kMaxObjects;
-  int* s_keep = s_py1 + n_cmax * kMaxObjects;
-  float* s_color = reinterpret_cast<float*>(s_keep + n_cmax * kMaxObjects);
+  uint32_t* s_rows = s_geo;                     // [crop][slot]
+  uint32_t* s_cols = s_rows + n_cmax * kObj;
+  float* s_color = reinterpret_cast<float*>(s_cols + n_cmax * kObj);
   for (int idx = tid; idx < n_cmax * n_obj; idx += kThreads) {
     const int ci = idx / n_obj;
     const int m = idx - ci * n_obj;
     const int crop = c_first + ci;
     if (crop >= n_crops) continue;
     const int f = crop / n_win;
-    const int slot = ci * kMaxObjects + m;
+    const int slot = ci * kObj + m;
     const float* win =
         windows + (per_camera_windows ? crop : crop % n_win) * 4;
     const float x0 = win[0], y0 = win[1], fw = win[2], fh = win[3];
@@ -153,37 +175,47 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
     const float iy1 = fminf(oy1, y0 + fh);
     const float inter = fmaxf(ix1 - ix0, 0.0f) * fmaxf(iy1 - iy0, 0.0f);
     const float box = (ox1 - ox0) * (oy1 - oy0);
-    s_keep[slot] = (inter / fmaxf(box, 1e-9f)) >= min_visible;
+    const bool keep = (inter / fmaxf(box, 1e-9f)) >= min_visible;
     const float r = static_cast<float>(res);
     const float top = static_cast<float>(res - 1);
     // clip first, then truncate (all values non-negative)
-    s_px0[slot] = static_cast<int>(fminf(fmaxf((ix0 - x0) / fw * r, 0.0f),
-                                         top));
-    s_px1[slot] = static_cast<int>(
+    const uint32_t px0 = static_cast<uint32_t>(
+        fminf(fmaxf((ix0 - x0) / fw * r, 0.0f), top));
+    const uint32_t px1 = static_cast<uint32_t>(
         fminf(fmaxf((ix1 - x0) / fw * r + 1.0f, 1.0f), r));
-    s_py0[slot] = static_cast<int>(fminf(fmaxf((iy0 - y0) / fh * r, 0.0f),
-                                         top));
-    s_py1[slot] = static_cast<int>(
+    const uint32_t py0 = static_cast<uint32_t>(
+        fminf(fmaxf((iy0 - y0) / fh * r, 0.0f), top));
+    const uint32_t py1 = static_cast<uint32_t>(
         fminf(fmaxf((iy1 - y0) / fh * r + 1.0f, 1.0f), r));
-    for (int ch = 0; ch < 3; ++ch) {
-      s_color[slot * 3 + ch] = colors[i * 3 + ch];
+    s_rows[slot] = keep ? py0 | py1 << 16 : 0u;
+    s_cols[slot] = keep ? px0 | px1 << 16 : 0u;
+    if constexpr (colors_in_smem<W>()) {
+      for (int ch = 0; ch < 3; ++ch) {
+        s_color[slot * 3 + ch] = colors[i * 3 + ch];
+      }
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < n_cmax * res; idx += kThreads) {
-    const int ci = idx / res;
-    const int t = idx - ci * res;
+  // word w of line t: the slots 32 w .. 32 w + 31 that cover it
+  for (int idx = tid; idx < n_cmax * res * W; idx += kThreads) {
+    const int ci = idx / (res * W);
+    const int rem = idx - ci * res * W;
+    const int t = rem / W;
+    const int w = rem - t * W;
     uint32_t rb = 0u, cb = 0u;
     if (c_first + ci < n_crops) {
-      for (int m = 0; m < n_obj; ++m) {
-        const int slot = ci * kMaxObjects + m;
-        if (!s_keep[slot]) continue;
-        if (t >= s_py0[slot] && t < s_py1[slot]) rb |= 1u << m;
-        if (t >= s_px0[slot] && t < s_px1[slot]) cb |= 1u << m;
+      const int m_end = min(n_obj - kWord * w, kWord);
+      for (int j = 0; j < m_end; ++j) {
+        const int slot = ci * kObj + kWord * w + j;
+        const uint32_t rr = s_rows[slot];
+        const uint32_t cc = s_cols[slot];
+        const uint32_t line = static_cast<uint32_t>(t);
+        if (line >= (rr & 0xffffu) && line < (rr >> 16)) rb |= 1u << j;
+        if (line >= (cc & 0xffffu) && line < (cc >> 16)) cb |= 1u << j;
       }
     }
-    s_bits[(ci * 2) * res + t] = rb;
-    s_bits[(ci * 2 + 1) * res + t] = cb;
+    s_bits[((ci * 2) * res + t) * W + w] = rb;
+    s_bits[((ci * 2 + 1) * res + t) * W + w] = cb;
   }
   __syncthreads();
 
@@ -236,9 +268,14 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int ci = rows[h].ci < 0 ? 0 : rows[h].ci;
-    rmask[h] = s_bits + (ci * 2) * res + rows[h].prow;
-    cmask[h] = s_bits + (ci * 2 + 1) * res + rows[h].pcol;
-    rcolor[h] = s_color + ci * kMaxObjects * 3;
+    rmask[h] = s_bits + ((ci * 2) * res + rows[h].prow) * W;
+    cmask[h] = s_bits + ((ci * 2 + 1) * res + rows[h].pcol) * W;
+    if constexpr (colors_in_smem<W>()) {
+      rcolor[h] = s_color + ci * kObj * 3;
+    } else {
+      const int crop = c_first + ci < n_crops ? c_first + ci : 0;
+      rcolor[h] = colors + static_cast<size_t>(crop / n_win) * n_obj * 3;
+    }
     rplane[h] = rows[h].plane + (rows[h].prow * res + rows[h].pcol) * 3;
   }
   // the background-plus-noise plane under the fragment's pixels of chunk
@@ -264,8 +301,25 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
   // plane, clipped to [0, 1]
   auto paint = [&](int h, const int4& e, float plane) -> float {
     if (rows[h].ci < 0 || e.y < 0) return 0.0f;
-    const uint32_t bits = rmask[h][e.y] & cmask[h][e.z];
-    const float v = bits ? rcolor[h][(31 - __clz(bits)) * 3 + e.w] : plane;
+    float v;
+    if constexpr (W == 1) {
+      const uint32_t bits = rmask[h][e.y] & cmask[h][e.z];
+      v = bits ? rcolor[h][(31 - __clz(bits)) * 3 + e.w] : plane;
+    } else {
+      // the highest nonzero word, then its highest set bit
+      uint32_t bits = 0u;
+      int word = 0;
+#pragma unroll
+      for (int w = W - 1; w >= 0; --w) {
+        const uint32_t b = rmask[h][e.y * W + w] & cmask[h][e.z * W + w];
+        if (bits == 0u && b != 0u) {
+          bits = b;
+          word = w;
+        }
+      }
+      v = bits ? rcolor[h][(kWord * word + 31 - __clz(bits)) * 3 + e.w]
+               : plane;
+    }
     return fminf(fmaxf(v, 0.0f), 1.0f);
   };
   fill_ktab(0);
@@ -348,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, 1) crop_patchify_kernel(
   }
 }
 
-template <int NT>
+template <int NT, int W>
 cudaError_t launch_tiles(const float* ox, const float* oy, const float* ow,
                          const float* oh, const float* colors,
                          const float* windows, const float* bgn,
@@ -360,20 +414,19 @@ cudaError_t launch_tiles(const float* ox, const float* oy, const float* ow,
   const int g = res / patch;
   const int n_patch = g * g;
   const int n_cmax = crops_per_tile(n_patch, n_crops);
-  const size_t smem = ring_bytes(NT) + kKTabBytes +
-                      static_cast<size_t>(n_cmax) * (kGeoBytes + 8 * res);
+  const size_t smem = shared_bytes<NT, W>(n_cmax, res);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   // set on every launch: the attribute is per device
   const cudaError_t err = cudaFuncSetAttribute(
-      crop_patchify_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      crop_patchify_kernel<NT, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long n_rows = static_cast<long long>(n_crops) * n_patch;
   const long long tiles = (n_rows + kBM - 1) / kBM;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int depth = patch * patch * 3;
   const dim3 grid(static_cast<unsigned>(tiles), (d_model + NT - 1) / NT);
-  crop_patchify_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  crop_patchify_kernel<NT, W><<<grid, kThreads, smem, stream>>>(
       ox, oy, ow, oh, colors, windows, bgn, wsplit, bias, out, n_obj, n_win,
       per_camera_windows, res, patch, d_model, min_visible, n_crops, n_cmax,
       (depth + kKC - 1) / kKC);
@@ -391,22 +444,26 @@ REPRO_EXTERN int crop_patchify_launch(
     const float* w, const float* bias, float* out, int n_cam, int n_obj,
     int n_win, int per_camera_windows, int res, int patch, int d_model,
     float min_visible, void* stream) {
-  if (n_obj > kMaxObjects || res > kMaxRes || patch <= 0 ||
+  if (n_obj > kWord * kMaxWords || res > kMaxRes || patch <= 0 ||
       res % patch != 0 || d_model < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_cam == 0 || n_win == 0) return 0;
   const long long n_crops = static_cast<long long>(n_cam) * n_win;
   if (n_crops > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      d_model <= 64
-          ? launch_tiles<64>(ox, oy, ow, oh, colors, windows, bgn, w, bias,
-                             out, static_cast<int>(n_crops), n_obj, n_win,
-                             per_camera_windows, res, patch, d_model,
-                             min_visible, as_stream(stream))
-          : launch_tiles<192>(ox, oy, ow, oh, colors, windows, bgn, w, bias,
-                              out, static_cast<int>(n_crops), n_obj, n_win,
-                              per_camera_windows, res, patch, d_model,
-                              min_visible, as_stream(stream));
+  // the narrowest ownership word count for M slots, and the feature tile
+  const int words = n_obj <= 32 ? 1 : n_obj <= 64 ? 2 : n_obj <= 128 ? 4 : 8;
+#define REPRO_TILES(NT, W)                                                 \
+  launch_tiles<NT, W>(ox, oy, ow, oh, colors, windows, bgn, w, bias, out,   \
+                      static_cast<int>(n_crops), n_obj, n_win,              \
+                      per_camera_windows, res, patch, d_model, min_visible, \
+                      as_stream(stream))
+#define REPRO_WORDS(NT)                                                    \
+  (words == 1 ? REPRO_TILES(NT, 1)                                         \
+   : words == 2 ? REPRO_TILES(NT, 2)                                       \
+   : words == 4 ? REPRO_TILES(NT, 4) : REPRO_TILES(NT, 8))
+  const cudaError_t err = d_model <= 64 ? REPRO_WORDS(64) : REPRO_WORDS(192);
+#undef REPRO_WORDS
+#undef REPRO_TILES
   return static_cast<int>(err);
 }

@@ -6,7 +6,7 @@
 // the layout work of its wrapper (ops.py: BSHD -> BHSD transposes, the
 // GQA `repeat` of K/V, padding S to blocks and D to 128 lanes).
 //
-// q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (Hq % Hkv == 0, D <= 128),
+// q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (Hq % Hkv == 0, D <= 256),
 // float32 or bfloat16 in, float32 softmax, output [B, Sq, Hq, D] in q's
 // type:
 //   s[i, j] = (q_i . k_j) * scale, masked to -inf where j >= Sk or, with
@@ -47,6 +47,13 @@
 // K/V heads are indexed as h / (Hq / Hkv), so GQA never copies K/V.
 // Causal tiles wholly above the diagonal are never loaded (the TPU
 // kernel's block skip).
+// Head dims past 128 (192 and 256, the MLA configs' query/key width):
+// the output's columns are cut in two slices of DP / 2, one block each.
+// Each slice computes the whole S = Q.K^T over all DP (more k-steps of
+// the same loop) and the softmax statistics identically, so the result
+// is exact, at the cost of S computed once per slice. In float32 a block
+// is one warpgroup of 64 rows (the split Q tile of 128 rows would not
+// fit), with 32 keys per tile at 192 and 16 at 256.
 #include <math.h>
 #include <stdint.h>
 
@@ -57,30 +64,39 @@
 
 namespace {
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 
 template <typename T, int DP>
 struct Cfg {
   static constexpr bool kTf32 = sizeof(T) == 4;
+  // output columns per block: all of them up to 128, else half
+  static constexpr int DV = DP <= 128 ? DP : DP / 2;
+  static constexpr int kSlices = DP / DV;
   // two warpgroups of 64 query rows share each K/V tile's load and split
-  static constexpr int WG = 2;
+  // (one in float32 past 128 dims)
+  static constexpr int WG = kTf32 && DP > 128 ? 1 : 2;
   static constexpr int BQ = 64 * WG;             // query rows per block
   static constexpr int kThreads = 128 * WG;
   static constexpr int NH = kTf32 ? 2 : 1;        // hi, lo halves
   using E = typename std::conditional<kTf32, uint32_t, __nv_bfloat16>::type;
   static constexpr int SP = DP + 16 / sizeof(T);  // staging row stride
-  static constexpr int kSmem64 =                  // bytes at 64 keys
-      NH * (BQ * DP + 2 * 64 * DP) * sizeof(E) + 2 * 64 * SP * sizeof(T);
+  // bytes at 64 and 32 keys per tile
+  static constexpr int kSmem64 = NH * (BQ * DP + 64 * DP + DV * 64) *
+                                     sizeof(E) + 2 * 64 * SP * sizeof(T);
+  static constexpr int kSmem32 = NH * (BQ * DP + 32 * DP + DV * 32) *
+                                     sizeof(E) + 2 * 32 * SP * sizeof(T);
   // keys per tile: 64, except float32 below D = 64 (where the last tile
   // of a short sequence wastes less and more blocks fit an SM) or where
-  // 64 would not fit a block's shared memory
-  static constexpr int BC = !kTf32 || (DP >= 64 && kSmem64 <= 232448) ? 64
-                                                                      : 32;
+  // 64 (then 32) would not fit a block's shared memory
+  static constexpr int BC =
+      (!kTf32 || DP >= 64) && kSmem64 <= 232448 ? 64
+      : kSmem32 <= 232448                       ? 32
+                                                : 16;
   static constexpr int EPC = kTf32 ? 4 : 8;       // values per core row
   static constexpr int KSTEP = 2 * EPC;           // MMA depth
   static constexpr int kQ = NH * BQ * DP;         // elements of E
   static constexpr int kK = NH * BC * DP;
-  static constexpr int kV = NH * DP * BC;
+  static constexpr int kV = NH * DV * BC;
   // staging rows are padded by 16 bytes, so the reads of one core
   // matrix's 8 rows fall in distinct banks
   static constexpr int kStage = 2 * BC * SP;      // elements of T
@@ -149,6 +165,7 @@ flash_attention_kernel(
     int hkv, int d, float scale, int causal, int q_offset, int n_qtiles,
     int vec16) {
   using C = Cfg<T, DP>;
+  constexpr int DV = C::DV;
   using E = typename C::E;
   constexpr int BC = C::BC;
   constexpr int EPC = C::EPC;
@@ -158,11 +175,15 @@ flash_attention_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   E* s_q = reinterpret_cast<E*>(smem);           // [NH][kBQ x DP]
   E* s_k = s_q + C::kQ;                          // [NH][BC x DP]
-  E* s_v = s_k + C::kK;                          // [NH][DP x BC]
+  E* s_v = s_k + C::kK;                          // [NH][DV x BC]
   T* s_stage = reinterpret_cast<T*>(s_v + C::kV);   // [K, V][BC][SP]
 
-  const int tile = blockIdx.x % n_qtiles;
-  const int bh = blockIdx.x / n_qtiles;
+  // the slice of output columns [v0, v0 + DV) innermost, so the slices
+  // of one query tile run side by side and share K/V in L2
+  const int v0 = (blockIdx.x % C::kSlices) * DV;
+  const int qt = blockIdx.x / C::kSlices;
+  const int tile = qt % n_qtiles;
+  const int bh = qt / n_qtiles;
   const int b = bh / hq;
   const int h = bh % hq;
   const int hk = h / (hq / hkv);
@@ -243,9 +264,9 @@ flash_attention_kernel(
   qpos[0] = q0 + rloc + q_offset;
   qpos[1] = qpos[0] + 8;
 
-  float o_acc[DP / 2];
+  float o_acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.0f;
   float s_acc[BC / 2];
 #pragma unroll
   for (int i = 0; i < BC / 2; ++i) s_acc[i] = 0.0f;
@@ -277,9 +298,9 @@ flash_attention_kernel(
       put_row<EPC>(s_k, s_k + BC * DP, u * EPC, x);
     }
 #pragma unroll 2
-    for (int u = tid; u < DP * BC / EPC; u += kThreads) {
+    for (int u = tid; u < DV * BC / EPC; u += kThreads) {
       int dim, p0;
-      core_pos<EPC>(u * EPC, BC, dim, p0);       // V as [D, keys]
+      core_pos<EPC>(u * EPC, BC, dim, p0);       // V's slice as [DV, keys]
       float x[EPC];
 #pragma unroll
       for (int e = 0; e < EPC; ++e) {
@@ -288,10 +309,10 @@ flash_attention_kernel(
         const int key = C::kTf32 ? (pos & ~7) | ((pos & 3) << 1) |
                                        ((pos >> 2) & 1)
                                  : pos;
-        x[e] = kt + key < sk && dim < d
-                   ? to_f32(s_stage[(BC + key) * SP + dim]) : 0.0f;
+        x[e] = kt + key < sk && v0 + dim < d
+                   ? to_f32(s_stage[(BC + key) * SP + v0 + dim]) : 0.0f;
       }
-      put_row<EPC>(s_v, s_v + DP * BC, u * EPC, x);
+      put_row<EPC>(s_v, s_v + DV * BC, u * EPC, x);
     }
     tc::fence_proxy_async();
     __syncthreads();
@@ -356,7 +377,7 @@ flash_attention_kernel(
       s_acc[i] = p;
     }
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
 
     // ---- O += P.V ------------------------------------------------------
     constexpr int NSTEP = BC / C::KSTEP;
@@ -388,13 +409,13 @@ flash_attention_kernel(
       const uint64_t vh = tc::desc(s_v + j * 2 * 8 * EPC, 128,
                                    128 * (BC / EPC));
       if constexpr (C::kTf32) {
-        const uint64_t vl = tc::desc(s_v + DP * BC + j * 64, 128,
+        const uint64_t vl = tc::desc(s_v + DV * BC + j * 64, 128,
                                      128 * (BC / EPC));
-        tc::Wgmma<true, true, DP>::mma(o_acc, p_lo[j], vh, 1);
-        tc::Wgmma<true, true, DP>::mma(o_acc, p_hi[j], vl, 1);
-        tc::Wgmma<true, true, DP>::mma(o_acc, p_hi[j], vh, 1);
+        tc::Wgmma<true, true, DV>::mma(o_acc, p_lo[j], vh, 1);
+        tc::Wgmma<true, true, DV>::mma(o_acc, p_hi[j], vl, 1);
+        tc::Wgmma<true, true, DV>::mma(o_acc, p_hi[j], vh, 1);
       } else {
-        tc::Wgmma<false, true, DP>::mma(o_acc, p_hi[j], vh, 1);
+        tc::Wgmma<false, true, DV>::mma(o_acc, p_hi[j], vh, 1);
       }
     }
     tc::commit();
@@ -415,10 +436,10 @@ flash_attention_kernel(
     const float denom = l_run[hh] > 0.0f ? l_run[hh] : 1.0f;
     T* orow = out + ((static_cast<size_t>(b) * sq + row) * hq + h) * d;
 #pragma unroll
-    for (int qd = 0; qd < DP / 8; ++qd) {
+    for (int qd = 0; qd < DV / 8; ++qd) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int dim = 8 * qd + 2 * tq + e;
+        const int dim = v0 + 8 * qd + 2 * tq + e;
         if (dim < d) store(orow + dim, o_acc[4 * qd + 2 * hh + e] / denom);
       }
     }
@@ -438,7 +459,8 @@ cudaError_t launch_one(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const int n_qtiles = (sq + C::BQ - 1) / C::BQ;
-  const long long blocks = static_cast<long long>(batch) * hq * n_qtiles;
+  const long long blocks =
+      static_cast<long long>(batch) * hq * n_qtiles * C::kSlices;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // 16-byte cp.async needs 16-byte aligned rows and bases
   const int vec16 = (d * sizeof(T)) % 16 == 0 &&
@@ -471,7 +493,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (d <= 64) REPRO_FLASH(64);
   if (d <= 80) REPRO_FLASH(80);
   if (d <= 96) REPRO_FLASH(96);
-  REPRO_FLASH(128);
+  if (d <= 128) REPRO_FLASH(128);
+  if (d <= 192) REPRO_FLASH(192);
+  REPRO_FLASH(256);
 #undef REPRO_FLASH
 }
 

@@ -15,13 +15,15 @@
 // in shared memory and the static [N, N] geometry read from L2. The
 // formula is neighbor_score.cuh's, which the fused shape_search kernel
 // (shape_search.cu) evaluates inline: the controller step no longer
-// launches this kernel, which stays as the kernel API.
+// launches this kernel, which stays as the kernel API (and the plain
+// shape search's scorer on the card), up to 512 cells like the fused
+// kernels.
 #include "common.cuh"
 #include "neighbor_score.cuh"
 
 namespace {
 
-constexpr int kMaxCells = 128;
+constexpr int kMaxCells = 512;   // as the fused search kernels' cell sets
 
 __global__ void neighbor_score_kernel(
     const float* __restrict__ member_has, const float* __restrict__ cent_x,

@@ -24,10 +24,14 @@
 //   teacher  = draw where live, else 2.0
 // then the 2P channels (students, then teachers) go through the shared
 // window body (csrc/cell_rasterize.cuh), and per window: counts/areas of
-// the student channels, nbox, centroid and spread from the moments
-// (numerics.fma_f32: the float32 product exact in double, one double
-// add, one rounding to float — __dmul_rn/__dadd_rn, not __fmaf_rn,
-// whose single rounding could differ on near-zero spreads), extent, and
+// the student channels, nbox, centroid and spread from the moments of
+// the centers d = c - o about the window's center o (centroid o + E[d];
+// variance E[d^2] - |E[d]|^2 as numerics.fma_f32 takes it: the float32
+// product exact in double, one double add, one rounding to float —
+// __dmul_rn/__dadd_rn, not __fmaf_rn). The centers lie within half a
+// window of o, so the variance lands within ~1e-4 of a float64 sum,
+// where the plain version's absolute moments (the reference's float32
+// formula, E[c^2] up to ~3e4 deg^2) land up to ~8.5e-3 from it; extent, and
 // the oracle accuracy: for each query q, the teacher count of its pair
 // against that pair's max over the camera's windows (binary: > 0;
 // counts: ratio; 1.0 when the camera sees none), summed in query order
@@ -117,9 +121,9 @@ __global__ void __launch_bounds__(kThreads) oracle_pass_kernel(
   float* s_oh = s_ow + n_obj;
   float* s_draw = s_oh + n_obj;                   // [2P][M]
   float* s_cnt_t = s_draw + 2 * n_pair * n_obj;   // [P][C] teacher counts
+  uint8_t* s_keep = reinterpret_cast<uint8_t*>(s_cnt_t + n_pair * n_win);
   __shared__ float s_a0[2 * kMaxPairs], s_span[2 * kMaxPairs];
   __shared__ float s_max[kMaxPairs];
-  __shared__ bool s_keep[raster::kMaxObjects];
 
   const int f = blockIdx.x;
   const int tid = threadIdx.x;
@@ -168,9 +172,10 @@ __global__ void __launch_bounds__(kThreads) oracle_pass_kernel(
   for (int c = warp; c < n_win; c += kWarps) {
     const float4 win = make_float4(windows[4 * c], windows[4 * c + 1],
                                    windows[4 * c + 2], windows[4 * c + 3]);
+    const float2 o = make_float2(win.x + win.z * 0.5f, win.y + win.w * 0.5f);
     const raster::WindowSums ws = raster::rasterize_window(
         s_ox, s_oy, s_ow, s_oh, s_draw, s_a0, s_span, n_obj, 2 * n_pair,
-        n_pair, win, min_visible, s_stage + warp * raster::kWarp);
+        n_pair, win, o, min_visible, s_stage + warp * raster::kWarp);
     const int fc = f * n_win + c;
     if (lane < n_pair) {
       counts[fc * n_pair + lane] = ws.cnt;
@@ -180,12 +185,12 @@ __global__ void __launch_bounds__(kThreads) oracle_pass_kernel(
     }
     if (lane == 0) {
       const float nb = fmaxf(ws.nbox, 1e-9f);
-      const float cx = ws.sx / nb;
-      const float cy = ws.sy / nb;
+      const float dx = ws.sx / nb;
+      const float dy = ws.sy / nb;
       const bool has = ws.nbox > 0.0f;
-      const float var = fma_f32(-cy, cy, fma_f32(-cx, cx, ws.s2 / nb));
-      centroid[2 * fc] = has ? cx : 0.0f;
-      centroid[2 * fc + 1] = has ? cy : 0.0f;
+      const float var = fma_f32(-dy, dy, fma_f32(-dx, dx, ws.s2 / nb));
+      centroid[2 * fc] = has ? o.x + dx : 0.0f;
+      centroid[2 * fc + 1] = has ? o.y + dy : 0.0f;
       spread[fc] = has ? sqrtf(fmaxf(var, 0.0f)) : 0.0f;
       extent[fc] = ws.ext;
       nbox[fc] = static_cast<int64_t>(ws.nbox);
@@ -242,7 +247,7 @@ REPRO_EXTERN int oracle_pass_launch(
     void* stream) {
   const long smem = kStageBytes +
       4L * (4L * n_obj + 2L * n_pair * n_obj + static_cast<long>(n_pair) *
-                                                   n_win);
+                                                   n_win) + n_obj;
   if (n_obj > raster::kMaxObjects || n_pair > kMaxPairs || n_pair < 1 ||
       n_query < 1 || n_query > kMaxQueries || flicker_bucket < 1 ||
       smem > kMaxSharedBytes) {

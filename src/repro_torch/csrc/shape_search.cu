@@ -18,9 +18,13 @@
 // What bounds it on an H100: latency, not bytes (~25 KB per call at 64
 // cameras) or operations. A camera's search is a serial chain of small
 // decisions, so one warp runs one camera and keeps what the chain touches
-// in registers and shared memory: cell sets are two 64-bit words (N <=
-// 128) held warp-uniform in every lane; the 8-neighbor, MST and walk-tree
-// adjacencies are bit rows in shared memory; the grid's float tables
+// in registers and shared memory: cell sets are W 64-bit words held
+// warp-uniform in every lane, W = 2, 4 or 8 picked at launch from N (so
+// N <= 128, 256 or 512: the default 25-cell grid runs the 2-word
+// instance, the 7.5-degree grid's 200 cells the 4-word one); the
+// 8-neighbor, MST and walk-tree adjacencies are bit rows in dynamic
+// shared memory sized by N (at 512 cells budget_walk's three take 96 KB);
+// the grid's float tables
 // (d_center, overlap, dist) and DFS push order are read from L2. Each
 // loop runs until its camera is done, under the plain version's static
 // bound. The lanes share what is parallel inside one decision:
@@ -73,66 +77,118 @@
 
 namespace {
 
-constexpr int kMaxCells = 128;
+constexpr int kMaxWords = 8;      // cells per set: up to 512
 constexpr unsigned kFull = 0xffffffffu;
 
-// A set of grid cells: cell i is bit (i & 63) of w[i >> 6].
+// A set of grid cells: cell i is bit (i & 63) of w[i >> 6]. W (2, 4 or
+// 8 words) is picked at launch from N; every word loop below unrolls,
+// so a set lives in registers (a word is selected, never indexed).
+template <int W>
 struct Cells {
-  unsigned long long w[2];
+  unsigned long long w[W];
 };
 
-__device__ __forceinline__ Cells none() { return Cells{{0ull, 0ull}}; }
-
-__device__ __forceinline__ Cells one(int i) {
-  return i < 64 ? Cells{{1ull << i, 0ull}} : Cells{{0ull, 1ull << (i - 64)}};
+template <int W>
+__device__ __forceinline__ Cells<W> none() {
+  Cells<W> s;
+#pragma unroll
+  for (int k = 0; k < W; ++k) s.w[k] = 0ull;
+  return s;
 }
 
-__device__ __forceinline__ Cells all_cells(int n) {
-  const unsigned long long lo = n >= 64 ? ~0ull : (1ull << n) - 1ull;
-  const unsigned long long hi =
-      n <= 64 ? 0ull : (n >= 128 ? ~0ull : (1ull << (n - 64)) - 1ull);
-  return Cells{{lo, hi}};
+template <int W>
+__device__ __forceinline__ Cells<W> one(int i) {
+  Cells<W> s;
+#pragma unroll
+  for (int k = 0; k < W; ++k) s.w[k] = k == (i >> 6) ? 1ull << (i & 63) : 0ull;
+  return s;
 }
 
-__device__ __forceinline__ Cells operator&(Cells a, Cells b) {
-  return Cells{{a.w[0] & b.w[0], a.w[1] & b.w[1]}};
+template <int W>
+__device__ __forceinline__ Cells<W> all_cells(int n) {
+  Cells<W> s;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int left = n - 64 * k;
+    s.w[k] = left >= 64 ? ~0ull : left <= 0 ? 0ull : (1ull << left) - 1ull;
+  }
+  return s;
 }
-__device__ __forceinline__ Cells operator|(Cells a, Cells b) {
-  return Cells{{a.w[0] | b.w[0], a.w[1] | b.w[1]}};
+
+template <int W>
+__device__ __forceinline__ Cells<W> operator&(Cells<W> a, Cells<W> b) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) a.w[k] &= b.w[k];
+  return a;
 }
-__device__ __forceinline__ Cells operator~(Cells a) {
-  return Cells{{~a.w[0], ~a.w[1]}};
+template <int W>
+__device__ __forceinline__ Cells<W> operator|(Cells<W> a, Cells<W> b) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) a.w[k] |= b.w[k];
+  return a;
 }
-__device__ __forceinline__ bool operator==(Cells a, Cells b) {
-  return a.w[0] == b.w[0] && a.w[1] == b.w[1];
+template <int W>
+__device__ __forceinline__ Cells<W> operator~(Cells<W> a) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) a.w[k] = ~a.w[k];
+  return a;
 }
-__device__ __forceinline__ bool any(Cells a) { return (a.w[0] | a.w[1]) != 0; }
-__device__ __forceinline__ int count(Cells a) {
-  return __popcll(a.w[0]) + __popcll(a.w[1]);
+template <int W>
+__device__ __forceinline__ bool operator==(Cells<W> a, Cells<W> b) {
+  unsigned long long diff = 0ull;
+#pragma unroll
+  for (int k = 0; k < W; ++k) diff |= a.w[k] ^ b.w[k];
+  return diff == 0ull;
 }
-__device__ __forceinline__ bool has(Cells a, int i) {
-  return ((i < 64 ? a.w[0] >> i : a.w[1] >> (i - 64)) & 1ull) != 0;
+template <int W>
+__device__ __forceinline__ bool any(Cells<W> a) {
+  unsigned long long x = 0ull;
+#pragma unroll
+  for (int k = 0; k < W; ++k) x |= a.w[k];
+  return x != 0ull;
+}
+template <int W>
+__device__ __forceinline__ int count(Cells<W> a) {
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) c += __popcll(a.w[k]);
+  return c;
+}
+template <int W>
+__device__ __forceinline__ bool has(Cells<W> a, int i) {
+  unsigned long long x = 0ull;
+#pragma unroll
+  for (int k = 0; k < W; ++k) x = k == (i >> 6) ? a.w[k] : x;
+  return ((x >> (i & 63)) & 1ull) != 0;
 }
 // the lowest cell of a non-empty set
-__device__ __forceinline__ int lowest(Cells a) {
-  return a.w[0] ? __ffsll(static_cast<long long>(a.w[0])) - 1
-                : 63 + __ffsll(static_cast<long long>(a.w[1]));
+template <int W>
+__device__ __forceinline__ int lowest(Cells<W> a) {
+  int low = 0;
+#pragma unroll
+  for (int k = W - 1; k >= 0; --k) {
+    if (a.w[k]) low = 64 * k + __ffsll(static_cast<long long>(a.w[k])) - 1;
+  }
+  return low;
 }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x; }
 
 // The set of cells i < n where pred(i) holds, one ballot per 32 cells;
 // every lane gets the same set.
-template <class Pred>
-__device__ __forceinline__ Cells collect(int n, Pred pred) {
-  Cells s = none();
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lane_id();
-    const unsigned long long b = __ballot_sync(kFull, i < n && pred(i));
-    if (base < 64) {
-      s.w[0] |= b << base;
-    } else {
-      s.w[1] |= b << (base - 64);
+template <int W, class Pred>
+__device__ __forceinline__ Cells<W> collect(int n, Pred pred) {
+  Cells<W> s = none<W>();
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int base = 64 * k + 32 * half;
+      if (base < n) {
+        const int i = base + lane_id();
+        const unsigned long long b = __ballot_sync(kFull, i < n && pred(i));
+        s.w[k] |= b << (32 * half);
+      }
     }
   }
   return s;
@@ -140,9 +196,10 @@ __device__ __forceinline__ Cells collect(int n, Pred pred) {
 
 // An [n, n] bool matrix -> n bit rows in shared memory. The bytes are
 // read flat, all loads independent (latency overlaps across the row).
+template <int W>
 __device__ void load_rows(const unsigned char* __restrict__ adj, int n,
-                          Cells* rows) {
-  for (int i = lane_id(); i < n; i += 32) rows[i] = none();
+                          Cells<W>* rows) {
+  for (int i = lane_id(); i < n; i += 32) rows[i] = none<W>();
   __syncwarp();
   for (int k = lane_id(); k < n * n; k += 32) {
     if (adj[k]) {
@@ -196,13 +253,14 @@ __device__ void stable_order(const float* key, int n, int* ord) {
 
 // Cells of `mask` reachable from `seed` over the bit rows: the flood
 // fill's fixpoint, each reached cell's row taken once.
-__device__ Cells flood(Cells mask, Cells seed, const Cells* rows) {
-  Cells reach = seed & mask;
-  Cells front = reach;
+template <int W>
+__device__ Cells<W> flood(Cells<W> mask, Cells<W> seed, const Cells<W>* rows) {
+  Cells<W> reach = seed & mask;
+  Cells<W> front = reach;
   while (any(front)) {
     const int i = lowest(front);
-    front = front & ~one(i);
-    const Cells add = rows[i] & mask & ~reach;
+    front = front & ~one<W>(i);
+    const Cells<W> add = rows[i] & mask & ~reach;
     reach = reach | add;
     front = front | add;
   }
@@ -210,15 +268,17 @@ __device__ Cells flood(Cells mask, Cells seed, const Cells* rows) {
 }
 
 // empty and 1-cell sets are contiguous
-__device__ bool contiguous(Cells mask, const Cells* rows) {
-  return !any(mask) || flood(mask, one(lowest(mask)), rows) == mask;
+template <int W>
+__device__ bool contiguous(Cells<W> mask, const Cells<W>* rows) {
+  return !any(mask) || flood(mask, one<W>(lowest(mask)), rows) == mask;
 }
 
 // Lowest-label member whose removal keeps the shape 8-connected, else the
 // lowest-label member: every member's removal is tested at once, one lane
 // per rank, and the first success in rank order is taken by ballot.
-__device__ int first_removable(Cells mask, int n, const float* labels,
-                               const Cells* nbr, float* key, int* ord) {
+template <int W>
+__device__ int first_removable(Cells<W> mask, int n, const float* labels,
+                               const Cells<W>* nbr, float* key, int* ord) {
   for (int i = lane_id(); i < n; i += 32) {
     key[i] = has(mask, i) ? labels[i] : CUDART_INF_F;
   }
@@ -227,7 +287,7 @@ __device__ int first_removable(Cells mask, int n, const float* labels,
   int pick = ord[0];
   for (int base = 0; base < m; base += 32) {
     const int r = base + lane_id();
-    const bool ok = r < m && contiguous(mask & ~one(ord[r]), nbr);
+    const bool ok = r < m && contiguous(mask & ~one<W>(ord[r]), nbr);
     const unsigned b = __ballot_sync(kFull, ok);
     if (b) {
       pick = ord[base + __ffs(b) - 1];
@@ -244,9 +304,10 @@ __device__ int first_removable(Cells mask, int n, const float* labels,
 
 // One camera's search: its strips in shared memory, the grid's tables in
 // global memory, the search constants.
+template <int W>
 struct Search {
   int n;
-  const Cells* nbr;           // [n] 8-neighbor bit rows
+  const Cells<W>* nbr;        // [n] 8-neighbor bit rows
   const float* labels;        // [n]
   const float* cx;            // [n] centroids
   const float* cy;
@@ -264,7 +325,8 @@ struct Search {
 };
 
 // First argmax of the labels over the cells of s; (-INF, 0) when none.
-__device__ Best label_max(const Search& p, Cells s) {
+template <int W>
+__device__ Best label_max(const Search<W>& p, Cells<W> s) {
   Best b{-CUDART_INF_F, 0};
   for (int i = lane_id(); i < p.n; i += 32) {
     const float v = p.labels[i];
@@ -275,7 +337,9 @@ __device__ Best label_max(const Search& p, Cells s) {
 
 // First argmax of the neighbor score over the candidate cells, with
 // member_has from the current mask; (-INF, 0) when there is none.
-__device__ Best best_candidate(const Search& p, Cells cand, Cells mask) {
+template <int W>
+__device__ Best best_candidate(const Search<W>& p, Cells<W> cand,
+                               Cells<W> mask) {
   for (int i = lane_id(); i < p.n; i += 32) {
     p.mh[i] = has(mask, i) && p.boxes[i] ? 1.0f : 0.0f;
   }
@@ -293,7 +357,8 @@ __device__ Best best_candidate(const Search& p, Cells cand, Cells mask) {
 }
 
 // The >= 2-member head/tail swap loop.
-__device__ Cells evolve_multi(const Search& p, Cells mask) {
+template <int W>
+__device__ Cells<W> evolve_multi(const Search<W>& p, Cells<W> mask) {
   const int n = p.n;
   // members by descending label, ties toward the lower cell; frozen
   for (int i = lane_id(); i < n; i += 32) {
@@ -311,7 +376,7 @@ __device__ Cells evolve_multi(const Search& p, Cells mask) {
     const int T = p.ord[min(max(t, 0), n - 1)];
     // parity: one IEEE division, then the float32 comparison
     if (!(p.labels[H] / fmaxf(p.labels[T], 1e-9f) > thresh)) break;
-    const Cells cand = p.nbr[H] & ~mask;
+    const Cells<W> cand = p.nbr[H] & ~mask;
     if (!any(cand)) {
       if (failed) break;  // second failure ends the loop
       ++h;
@@ -320,7 +385,7 @@ __device__ Cells evolve_multi(const Search& p, Cells mask) {
       continue;
     }
     const int best = best_candidate(p, cand, mask).i;
-    const Cells trial = (mask | one(best)) & ~one(T);
+    const Cells<W> trial = (mask | one<W>(best)) & ~one<W>(T);
     if (contiguous(trial, p.nbr)) {
       mask = trial;
       failed = false;
@@ -333,45 +398,49 @@ __device__ Cells evolve_multi(const Search& p, Cells mask) {
 }
 
 // The 1-member drift/jump branch.
-__device__ Cells evolve_single(const Search& p, Cells mask) {
+template <int W>
+__device__ Cells<W> evolve_single(const Search<W>& p, Cells<W> mask) {
   const int H = lowest(mask);
   const float lab_h = p.labels[H];
-  const Best g = label_max(p, all_cells(p.n));
+  const Best g = label_max(p, all_cells<W>(p.n));
   // parity: (lab_h * 2) * base, two roundings in this order
   const bool jump = g.i != H && g.v > (lab_h * 2.0f) * p.base;
-  const Cells cand = p.nbr[H] & ~mask;
+  const Cells<W> cand = p.nbr[H] & ~mask;
   // parity: no candidate gives (-INF, 0), so lab_best reads cell 0 as
   // the plain version's argmax over an all -INF row does
   const Best b = best_candidate(p, cand, mask);
   const bool moving_away = b.v > 1.05f;
   const bool promising = p.labels[b.i] > lab_h * p.base;
   const bool drift = !jump && any(cand) && (moving_away || promising);
-  if (jump || drift) mask = (mask & ~one(H)) | one(jump ? g.i : b.i);
+  if (jump || drift) mask = (mask & ~one<W>(H)) | one<W>(jump ? g.i : b.i);
   return mask;
 }
 
 // Grow to / shrink to the target cell count.
-__device__ Cells resize(const Search& p, Cells mask, long long max_cells) {
+template <int W>
+__device__ Cells<W> resize(const Search<W>& p, Cells<W> mask,
+                           long long max_cells) {
   const int n = p.n;
   const int target =
       static_cast<int>(min(max(max_cells, 1LL), static_cast<long long>(n)));
   // grow: the best-scored free neighbor of the highest-label member that
   // has one; stuck when no member has a free neighbor
   for (int it = 0; it < n && count(mask) < target; ++it) {
-    const Cells eligible = collect(
+    const Cells<W> eligible = collect<W>(
         n, [&](int i) { return has(mask, i) && any(p.nbr[i] & ~mask); });
     if (!any(eligible)) break;
     const int H = label_max(p, eligible).i;
-    mask = mask | one(best_candidate(p, p.nbr[H] & ~mask, mask).i);
+    mask = mask | one<W>(best_candidate(p, p.nbr[H] & ~mask, mask).i);
   }
   // shrink: the lowest-label member whose removal keeps the shape whole
   for (int it = 0; it < n - 1 && count(mask) > target; ++it) {
-    mask = mask & ~one(first_removable(mask, n, p.labels, p.nbr, p.key,
+    mask = mask & ~one<W>(first_removable(mask, n, p.labels, p.nbr, p.key,
                                        p.ord));
   }
   return mask;
 }
 
+template <int W>
 __global__ void __launch_bounds__(32) shape_search_kernel(
     const unsigned char* __restrict__ prev, const float* __restrict__ labels,
     const float* __restrict__ centroids,
@@ -382,14 +451,16 @@ __global__ void __launch_bounds__(32) shape_search_kernel(
     const unsigned char* __restrict__ neighbor8,
     unsigned char* __restrict__ out, int n, float base, float growth,
     int max_swaps) {
-  __shared__ Cells s_nbr[kMaxCells];
-  __shared__ float s_labels[kMaxCells];
-  __shared__ float s_cx[kMaxCells];
-  __shared__ float s_cy[kMaxCells];
-  __shared__ float s_mh[kMaxCells];
-  __shared__ float s_key[kMaxCells];
-  __shared__ unsigned char s_boxes[kMaxCells];
-  __shared__ int s_ord[kMaxCells];
+  // dynamic shared memory sized by N (shape_search_bytes)
+  extern __shared__ __align__(16) unsigned char smem[];
+  Cells<W>* s_nbr = reinterpret_cast<Cells<W>*>(smem);
+  float* s_labels = reinterpret_cast<float*>(s_nbr + n);
+  float* s_cx = s_labels + n;
+  float* s_cy = s_cx + n;
+  float* s_mh = s_cy + n;
+  float* s_key = s_mh + n;
+  int* s_ord = reinterpret_cast<int*>(s_key + n);
+  unsigned char* s_boxes = reinterpret_cast<unsigned char*>(s_ord + n);
   const size_t row = static_cast<size_t>(blockIdx.x) * n;
   load_rows(neighbor8, n, s_nbr);
   for (int i = lane_id(); i < n; i += 32) {
@@ -398,9 +469,9 @@ __global__ void __launch_bounds__(32) shape_search_kernel(
     s_cy[i] = centroids[2 * (row + i) + 1];
     s_boxes[i] = has_boxes[row + i];
   }
-  Cells mask = collect(n, [&](int i) { return prev[row + i] != 0; });
+  Cells<W> mask = collect<W>(n, [&](int i) { return prev[row + i] != 0; });
   __syncwarp();
-  const Search p{n,        s_nbr,   s_labels, s_cx,   s_cy, s_boxes,
+  const Search<W> p{n,        s_nbr,   s_labels, s_cx,   s_cy, s_boxes,
                  s_mh,     s_key,   s_ord,    d_center, overlap,
                  cell_x,   cell_y,  base,     growth, max_swaps};
   const int m = count(mask);
@@ -417,10 +488,11 @@ __global__ void __launch_bounds__(32) shape_search_kernel(
 // budget_walk
 // ---------------------------------------------------------------------------
 
+template <int W>
 struct Walk {
   int n;
-  const Cells* mst;             // [n] MST bit rows (shared)
-  Cells* tree;                  // [n] the walk's tree (shared)
+  const Cells<W>* mst;          // [n] MST bit rows (shared)
+  Cells<W>* tree;               // [n] the walk's tree (shared)
   int* stack;                   // [n + 1] (shared)
   int* path;                    // [n] preorder cells (shared)
   const float* dist;            // [n, n] rotation distance
@@ -430,7 +502,8 @@ struct Walk {
 // Preorder walk of the shape's induced MST, its components stitched by
 // their cheapest edges: writes path[0..cnt), returns cnt and the hop sum
 // in degrees from `start` along the path.
-__device__ int walk(const Walk& w, Cells mask, int start, float* t_deg) {
+template <int W>
+__device__ int walk(const Walk<W>& w, Cells<W> mask, int start, float* t_deg) {
   const int n = w.n;
   const int lane = lane_id();
   int start2 = start;
@@ -443,24 +516,24 @@ __device__ int walk(const Walk& w, Cells mask, int start, float* t_deg) {
     start2 = warp_best<false>(b).i;
   }
   for (int i = lane; i < n; i += 32) {
-    w.tree[i] = has(mask, i) ? (w.mst[i] & mask) : none();
+    w.tree[i] = has(mask, i) ? (w.mst[i] & mask) : none<W>();
   }
   __syncwarp();
 
   // stitch the induced forest's components to start2's by the cheapest
   // (row-major first) edge from the stitched part, one per component
-  Cells done = flood(mask, one(start2), w.mst);
+  Cells<W> done = flood(mask, one<W>(start2), w.mst);
   for (int it = 0; it < n - 1; ++it) {
-    const Cells rest = mask & ~done;
+    const Cells<W> rest = mask & ~done;
     if (!any(rest)) break;
     // parity: (distance, u * n + v), each lane's pairs in ascending flat
     // order, so the first cheapest edge in row-major order wins
     Best b{CUDART_INF_F, 0};
     for (int u = lane; u < n; u += 32) {
       if (!has(done, u)) continue;
-      for (Cells r = rest; any(r);) {
+      for (Cells<W> r = rest; any(r);) {
         const int v = lowest(r);
-        r = r & ~one(v);
+        r = r & ~one<W>(v);
         const float d = w.dist[u * n + v];
         if (d < b.v) b = Best{d, u * n + v};
       }
@@ -468,10 +541,10 @@ __device__ int walk(const Walk& w, Cells mask, int start, float* t_deg) {
     b = warp_best<false>(b);
     const int u = b.i / n;
     const int v = b.i - u * n;
-    done = done | (flood(mask, one(v), w.mst) & rest);
+    done = done | (flood(mask, one<W>(v), w.mst) & rest);
     if (lane == 0) {
-      w.tree[u] = w.tree[u] | one(v);
-      w.tree[v] = w.tree[v] | one(u);
+      w.tree[u] = w.tree[u] | one<W>(v);
+      w.tree[v] = w.tree[v] | one<W>(u);
     }
     __syncwarp();
   }
@@ -482,16 +555,16 @@ __device__ int walk(const Walk& w, Cells mask, int start, float* t_deg) {
   __syncwarp();
   int top = any(mask) ? 1 : 0;
   int cnt = 0;
-  Cells seen = none();
+  Cells<W> seen = none<W>();
   for (int it = 0; it < n && top > 0; ++it) {
     const int u = w.stack[top - 1];
     const int top2 = top - 1;
-    seen = seen | one(u);
+    seen = seen | one<W>(u);
     if (lane == 0) w.path[cnt] = u;
     ++cnt;
     // parity: unseen tree neighbors pushed in nbr_order's order, slots
     // by a ballot prefix (the plain version's cumsum)
-    const Cells kids = w.tree[u] & ~seen;
+    const Cells<W> kids = w.tree[u] & ~seen;
     int pushed = 0;
     if (any(kids)) {
       // every lane has read u before the first ballot; pushes follow it
@@ -532,6 +605,7 @@ __device__ void store_walk(const int* path, int cnt, float t, int n,
   }
 }
 
+template <int W>
 __global__ void __launch_bounds__(32) budget_walk_kernel(
     const unsigned char* __restrict__ mask_in,
     const long long* __restrict__ start, const float* __restrict__ labels,
@@ -542,26 +616,28 @@ __global__ void __launch_bounds__(32) budget_walk_kernel(
     unsigned char* __restrict__ mask_out, long long* __restrict__ order,
     long long* __restrict__ cnt_out, float* __restrict__ t_out, int n,
     float per_cell, float rotation_speed) {
-  __shared__ Cells s_nbr[kMaxCells];
-  __shared__ Cells s_mst[kMaxCells];
-  __shared__ Cells s_tree[kMaxCells];
-  __shared__ float s_labels[kMaxCells];
-  __shared__ float s_key[kMaxCells];
-  __shared__ int s_ord[kMaxCells];
-  __shared__ int s_stack[kMaxCells + 1];
-  __shared__ int s_path[kMaxCells];
+  // dynamic shared memory sized by N (budget_walk_bytes)
+  extern __shared__ __align__(16) unsigned char smem[];
+  Cells<W>* s_nbr = reinterpret_cast<Cells<W>*>(smem);
+  Cells<W>* s_mst = s_nbr + n;
+  Cells<W>* s_tree = s_mst + n;
+  float* s_labels = reinterpret_cast<float*>(s_tree + n);
+  float* s_key = s_labels + n;
+  int* s_ord = reinterpret_cast<int*>(s_key + n);
+  int* s_path = s_ord + n;
+  int* s_stack = s_path + n;                    // [n + 1]
   const int f = blockIdx.x;
   const size_t row = static_cast<size_t>(f) * n;
   load_rows(neighbor8, n, s_nbr);
   load_rows(mst_adj, n, s_mst);
   for (int i = lane_id(); i < n; i += 32) s_labels[i] = labels[row + i];
-  Cells mask = collect(n, [&](int i) { return mask_in[row + i] != 0; });
+  Cells<W> mask = collect<W>(n, [&](int i) { return mask_in[row + i] != 0; });
   __syncwarp();
-  const Walk w{n, s_mst, s_tree, s_stack, s_path, dist, nbr_order};
+  const Walk<W> w{n, s_mst, s_tree, s_stack, s_path, dist, nbr_order};
   const int st = static_cast<int>(start[f]);
   const float budget = budget_s[f];
   // parity: per_cell * cnt, then + t, each a float32 rounding (no FMA)
-  const auto feasible = [&](Cells mk, int cnt, float t) {
+  const auto feasible = [&](Cells<W> mk, int cnt, float t) {
     return t + per_cell * static_cast<float>(cnt) <= budget || count(mk) <= 1;
   };
 
@@ -573,7 +649,7 @@ __global__ void __launch_bounds__(32) budget_walk_kernel(
   // passes suffice
   bool done = feasible(mask, cnt, t);
   for (int it = 0; it < n - 1 && !done; ++it) {
-    mask = mask & ~one(first_removable(mask, n, s_labels, s_nbr, s_key,
+    mask = mask & ~one<W>(first_removable(mask, n, s_labels, s_nbr, s_key,
                                        s_ord));
     cnt = walk(w, mask, st, &t_deg);
     t = t_deg / rotation_speed;
@@ -585,6 +661,63 @@ __global__ void __launch_bounds__(32) budget_walk_kernel(
   for (int i = lane_id(); i < n; i += 32) mask_out[row + i] = has(mask, i);
 }
 
+// shared memory of one camera's block: bit rows, float and int strips
+constexpr size_t shape_search_bytes(int w, int n) {
+  return static_cast<size_t>(n) * (8 * w + 6 * 4 + 1);
+}
+constexpr size_t budget_walk_bytes(int w, int n) {
+  return static_cast<size_t>(n) * (3 * 8 * w + 5 * 4) + 4;
+}
+
+// the narrowest set for N cells: 2, 4 or 8 words (N <= 512)
+int words_for(int n) { return n <= 128 ? 2 : n <= 256 ? 4 : 8; }
+
+template <class Kernel>
+cudaError_t fit_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int W>
+cudaError_t launch_search(const unsigned char* prev, const float* labels,
+                          const float* centroids,
+                          const unsigned char* has_boxes,
+                          const long long* max_cells, const float* d_center,
+                          const float* overlap, const float* cell_x,
+                          const float* cell_y,
+                          const unsigned char* neighbor8, unsigned char* out,
+                          int batch, int n, float base, float growth,
+                          int max_swaps, cudaStream_t stream) {
+  const size_t smem = shape_search_bytes(W, n);
+  const cudaError_t err = fit_smem(shape_search_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
+  shape_search_kernel<W><<<batch, 32, smem, stream>>>(
+      prev, labels, centroids, has_boxes, max_cells, d_center, overlap,
+      cell_x, cell_y, neighbor8, out, n, base, growth, max_swaps);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_walk(const unsigned char* mask, const long long* start,
+                        const float* labels, const float* budget_s,
+                        const float* dist, const unsigned char* mst_adj,
+                        const long long* nbr_order,
+                        const unsigned char* neighbor8,
+                        unsigned char* mask_out, long long* order,
+                        long long* cnt, float* t, int batch, int n,
+                        float per_cell, float rotation_speed,
+                        cudaStream_t stream) {
+  const size_t smem = budget_walk_bytes(W, n);
+  const cudaError_t err = fit_smem(budget_walk_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
+  budget_walk_kernel<W><<<batch, 32, smem, stream>>>(
+      mask, start, labels, budget_s, dist, mst_adj, nbr_order, neighbor8,
+      mask_out, order, cnt, t, n, per_cell, rotation_speed);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 REPRO_EXTERN int shape_search_launch(
@@ -594,15 +727,21 @@ REPRO_EXTERN int shape_search_launch(
     const float* cell_y, const unsigned char* neighbor8, unsigned char* out,
     int batch, int n_cells, float base_threshold, float threshold_growth,
     int max_swaps, void* stream) {
-  if (n_cells < 1 || n_cells > kMaxCells) {
+  if (n_cells < 1 || n_cells > 64 * kMaxWords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  shape_search_kernel<<<batch, 32, 0, as_stream(stream)>>>(
-      prev, labels, centroids, has_boxes, max_cells, d_center, overlap,
-      cell_x, cell_y, neighbor8, out, n_cells, base_threshold,
-      threshold_growth, max_swaps);
-  return static_cast<int>(cudaGetLastError());
+#define REPRO_SEARCH(W)                                                     \
+  launch_search<W>(prev, labels, centroids, has_boxes, max_cells, d_center, \
+                   overlap, cell_x, cell_y, neighbor8, out, batch, n_cells, \
+                   base_threshold, threshold_growth, max_swaps,             \
+                   as_stream(stream))
+  const int w = words_for(n_cells);
+  const cudaError_t err = w == 2   ? REPRO_SEARCH(2)
+                          : w == 4 ? REPRO_SEARCH(4)
+                                   : REPRO_SEARCH(8);
+#undef REPRO_SEARCH
+  return static_cast<int>(err);
 }
 
 REPRO_EXTERN int budget_walk_launch(
@@ -612,12 +751,18 @@ REPRO_EXTERN int budget_walk_launch(
     unsigned char* mask_out, long long* order, long long* cnt, float* t,
     int batch, int n_cells, float per_cell, float rotation_speed,
     void* stream) {
-  if (n_cells < 1 || n_cells > kMaxCells) {
+  if (n_cells < 1 || n_cells > 64 * kMaxWords) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  budget_walk_kernel<<<batch, 32, 0, as_stream(stream)>>>(
-      mask, start, labels, budget_s, dist, mst_adj, nbr_order, neighbor8,
-      mask_out, order, cnt, t, n_cells, per_cell, rotation_speed);
-  return static_cast<int>(cudaGetLastError());
+#define REPRO_WALK(W)                                                       \
+  launch_walk<W>(mask, start, labels, budget_s, dist, mst_adj, nbr_order,   \
+                 neighbor8, mask_out, order, cnt, t, batch, n_cells,        \
+                 per_cell, rotation_speed, as_stream(stream))
+  const int w = words_for(n_cells);
+  const cudaError_t err = w == 2   ? REPRO_WALK(2)
+                          : w == 4 ? REPRO_WALK(4)
+                                   : REPRO_WALK(8);
+#undef REPRO_WALK
+  return static_cast<int>(err);
 }

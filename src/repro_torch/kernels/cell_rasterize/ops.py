@@ -110,8 +110,8 @@ def cell_rasterize(ox, oy, ow, oh, draw, a0, a1, windows, *,
                          "a0/a1 [P]")
     if windows.shape != (c, 4):
         raise ValueError("cell_rasterize: windows must be [C, 4]")
-    if m > 128 or p > 16 or not 0 <= n_moment <= p:
-        raise ValueError(f"cell_rasterize kernel takes M <= 128 objects "
+    if m > 256 or p > 16 or not 0 <= n_moment <= p:
+        raise ValueError(f"cell_rasterize kernel takes M <= 256 objects "
                          f"and P <= 16 channels, 0 <= n_moment <= P; got "
                          f"M={m}, P={p}, n_moment={n_moment}")
     dev = ox.device

@@ -3,12 +3,13 @@ the CUDA kernel's wrapper (csrc/crop_patchify.cu) and the
 provider-native entry `crop_patchify`.
 
 The plain version composes the two stages the kernel fuses: render every
-(camera, window) crop — last-painter-wins ownership packed into one
-uint32 lane per object, owner = highest set bit of rowbits & colbits —
-then apply the conv patch-embed (stride = patch, VALID) as a patchify +
-matrix product. Its pixels are bit-identical to the reference renderer's
-packed path; the kernel paints the same pixels tile by tile and never
-writes them to device memory.
+(camera, window) crop — last-painter-wins ownership packed into words
+of 32 lanes, one lane per object, owner = the highest set bit of the
+highest nonzero word of rowbits & colbits — then apply the conv
+patch-embed (stride = patch, VALID) as a patchify + matrix product. Its
+pixels are bit-identical to the reference renderer's packed path; the
+kernel paints the same pixels tile by tile and never writes them to
+device memory.
 """
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.scene.render import object_colors, render_background
 
-MAX_OBJECTS = 32        # object slots per uint32 ownership lane
+WORD = 32               # object slots per ownership word (uint32)
+MAX_WORDS = 8           # the kernel's ownership words: up to 256 slots
+MAX_OBJECTS = WORD * MAX_WORDS
 K_CHUNK = 64            # the kernel's K depth per ring stage
+SMEM_LIMIT = 232448     # a block's opt-in shared memory on the H100
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +43,24 @@ def n_tile(d: int) -> int:
     """The kernel's feature tile: all D features in one block (64 for
     D <= 64, else 192 per tile)."""
     return 64 if d <= 64 else 192
+
+
+def n_words(m: int) -> int:
+    """The kernel's ownership words for M object slots (1, 2, 4 or 8)."""
+    return next(w for w in (1, 2, 4, 8) if m <= WORD * w)
+
+
+def kernel_shared_bytes(m: int, res: int, patch: int, d: int,
+                        n_crops: int) -> int:
+    """The kernel's dynamic shared memory per block (csrc/
+    crop_patchify.cu, shared_bytes): the 2-stage weight ring and K table,
+    then per crop a 128-row tile touches its row and column masks and
+    its objects' packed bounds and (up to 4 words) colours."""
+    w = n_words(m)
+    n_cmax = min(127 // (res // patch) ** 2 + 2, n_crops)
+    per_crop = 2 * res * w * 4 + WORD * w * (2 + (3 if w <= 4 else 0)) * 4
+    return 2 * 2 * n_tile(d) * K_CHUNK * 4 + 2 * K_CHUNK * 16 + (
+        n_cmax * per_crop)
 
 
 def tf32_split_weights(wflat: torch.Tensor) -> torch.Tensor:
@@ -64,9 +86,6 @@ def render_crops_plain(ox, oy, ow, oh, colors, windows, bgn, *, res: int,
     fleet-shared [K, 4]; bgn [F, res, res, 3] background + noise.
     -> crops [F, K, res, res, 3] in [0, 1]."""
     f, m = ox.shape
-    if m > MAX_OBJECTS:
-        raise ValueError(f"packed ownership takes up to {MAX_OBJECTS} "
-                         f"objects, got {m}")
     if windows.dim() == 2:
         windows = windows[None].expand(f, -1, -1)
     x0 = windows[..., 0][..., None]                  # [F, K, 1]
@@ -93,19 +112,30 @@ def render_crops_plain(ox, oy, ow, oh, colors, windows, bgn, *, res: int,
     py0 = torch.clamp((iy0 - y0) / fh * res, 0, res - 1).to(torch.int64)
     py1 = torch.clamp((iy1 - y0) / fh * res + 1, 1, res).to(torch.int64)
 
-    lane = torch.ones(m, dtype=torch.int64, device=ox.device) << torch.arange(
-        m, device=ox.device)
+    # objects in words of 32 lanes (slot 32 w + j is bit j of word w),
+    # padded slots never painting
+    n_w = max(1, -(-m // WORD))
+    pad = n_w * WORD - m
+    lane = torch.ones(WORD, dtype=torch.int64,
+                      device=ox.device) << torch.arange(WORD,
+                                                        device=ox.device)
     rc = torch.arange(res, device=ox.device)
-    rows = (keep[..., None] & (rc >= py0[..., None])
-            & (rc < py1[..., None]))                 # [F, K, M, res]
-    cols = (keep[..., None] & (rc >= px0[..., None])
-            & (rc < px1[..., None]))
-    rowbits = torch.sum(rows * lane[:, None], dim=-2)
-    colbits = torch.sum(cols * lane[:, None], dim=-2)
-    bits = rowbits[..., :, None] & colbits[..., None, :]   # [F, K, r, r]
+
+    def words(lo, hi):                               # -> [F, K, W, res]
+        hit = (keep[..., None] & (rc >= lo[..., None])
+               & (rc < hi[..., None]))               # [F, K, M, res]
+        hit = torch.nn.functional.pad(hit.to(torch.int64), (0, 0, 0, pad))
+        hit = hit.reshape(f, -1, n_w, WORD, res)
+        return torch.sum(hit * lane[:, None], dim=-2)
+
+    rowbits, colbits = words(py0, py1), words(px0, px1)
+    bits = rowbits[..., :, None] & colbits[..., None, :]   # [F,K,W,r,r]
     # highest set bit: bits = mant * 2**e with mant in [0.5, 1), exact in
-    # float64 below 2**53; frexp(0) gives e = 0, so empty masks read -1
-    owner = torch.frexp(bits.to(torch.float64)).exponent.to(torch.int64) - 1
+    # float64 below 2**53; frexp(0) gives e = 0, so empty words read -1;
+    # the owner is the highest set bit of the highest nonzero word
+    top = torch.frexp(bits.to(torch.float64)).exponent.to(torch.int64) - 1
+    base = WORD * torch.arange(n_w, device=ox.device)
+    owner = torch.where(top >= 0, top + base[:, None, None], -1).amax(2)
     cam = torch.arange(f, device=ox.device)[:, None, None, None]
     painted = colors[cam, torch.clamp(owner, min=0)]       # [F,K,r,r,3]
     img = torch.where((owner >= 0)[..., None], painted, bgn[:, None])
@@ -158,6 +188,12 @@ def crop_patchify_batch(ox, oy, ow, oh, colors, windows, bgn, wflat,
         raise ValueError(f"crop_patchify kernel takes M <= {MAX_OBJECTS} "
                          f"objects and res <= 1024 divisible by patch; got "
                          f"M={m}, res={res}, patch={patch}")
+    smem = kernel_shared_bytes(m, res, patch, d, f * k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"crop_patchify kernel needs {smem} bytes of "
+                         f"shared memory per block at M={m}, res={res}, "
+                         f"patch={patch}, D={d}: over the {SMEM_LIMIT}-"
+                         f"byte budget")
     g = res // patch
     out = torch.empty((f, k, g * g, d), dtype=torch.float32,
                       device=ox.device)

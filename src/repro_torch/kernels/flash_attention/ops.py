@@ -6,7 +6,8 @@ with Hq % Hkv == 0 (GQA: query head h reads kv head h // (Hq / Hkv)) and
 returns [B, Sq, Hq, D] in q's dtype. Math is float32 for float32 and
 bfloat16 inputs. The kernel reads that layout as it is: no transposes,
 no repeated K/V heads and no padding of S or D (the TPU version's
-128-lane and block padding), so any S and any D <= 128 go straight in.
+128-lane and block padding), so any S and any D <= 256 go straight in
+(past 128, the kernel computes the output in two column slices).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.kernels import _lib
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 

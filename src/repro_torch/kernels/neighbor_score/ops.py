@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.kernels import _lib
 
+MAX_CELLS = 512     # the kernel's per-camera strips in shared memory
+
 
 def geometry_arrays(grid) -> dict:
     """Static per-grid geometry (numpy): d_center/overlap [N, N], the
@@ -66,9 +68,9 @@ def neighbor_score_batch(member_has, cent_x, cent_y, d_center, overlap, cell_x,
         raise ValueError("neighbor_score: d_center/overlap must be [N, N]")
     if cell_x.shape != (n,) or cell_y.shape != (n,):
         raise ValueError("neighbor_score: cell_x/cell_y must be [N]")
-    if n > 128:
-        raise ValueError(f"neighbor_score kernel takes up to 128 cells, "
-                         f"got {n}")
+    if n > MAX_CELLS:
+        raise ValueError(f"neighbor_score kernel takes up to {MAX_CELLS} "
+                         f"cells, got {n}")
     out = torch.empty((b, n), dtype=torch.float32,
                       device=member_has.device)
     _lib.launch("neighbor_score", member_has.device,

@@ -27,9 +27,12 @@ from repro_torch.scene.scene import kind_mask
 MASK32 = 0xFFFFFFFF
 _MISS_SALT = 0x4D155
 _BASE_SALT = 0xBA5E
-# the kernel's limits: objects and pairs per camera (one lane per
-# teacher and student channel of a warp), queries passed by value
-MAX_OBJECTS = 128
+# the kernel's limits: objects per camera (32-object chunks, staged in
+# shared memory), pairs (one lane per teacher and student channel of a
+# warp) and queries (passed by value). A workload names at most 8
+# distinct pairs (4 TEACHERS x 2 classes) and 32 distinct queries (x 4
+# TASKS), so P <= 16 and Q <= 64 take every workload
+MAX_OBJECTS = 256
 MAX_PAIRS = 16
 MAX_QUERIES = 64
 
@@ -222,7 +225,8 @@ def oracle_pass(spec, teach, params, state, t: torch.Tensor,
     if m > MAX_OBJECTS or p > MAX_PAIRS or m != spec.max_objects:
         raise ValueError(f"oracle_pass kernel takes M <= {MAX_OBJECTS} "
                          f"objects (spec.max_objects) and P <= "
-                         f"{MAX_PAIRS} pairs; got M={m}, P={p}")
+                         f"{MAX_PAIRS} pairs (a workload has at most 8: "
+                         f"4 teachers x 2 classes); got M={m}, P={p}")
     # the kernel reads a slot's kind as (m >= max_people): PERSON slots
     # first, then CAR, as kind_mask lays them out
     if not np.array_equal(kind_mask(spec),
@@ -239,7 +243,8 @@ def oracle_pass(spec, teach, params, state, t: torch.Tensor,
             or not all(0 <= i < p for i in pair_idx)):
         raise ValueError(f"oracle_pass: task_id {task_id} / pair_idx "
                          f"{pair_idx} do not name 1 to {MAX_QUERIES} "
-                         f"queries over {p} pairs")
+                         f"queries over {p} pairs (a workload has at "
+                         f"most 32 distinct: 8 pairs x 4 tasks)")
     n = c // n_zoom
 
     def empty(*shape, dtype=f32):

@@ -10,13 +10,14 @@ version:
 
 The plain versions are masked fleet-batch loops: every mask is [F, N]
 bool, per-camera scalars are [F]. The data-dependent loops run as Python
-loops to a static bound guaranteed by the algorithm, with per-camera
-`done` masks turning finished cameras' iterations into no-ops — so a
-step never reads a value back to the host to decide whether to
-continue. Two loops of the reference become fixed-depth tensor programs
-with the same result: reachability inside a shape is a log-doubling
-transitive closure (ceil(log2 N) squarings instead of up to N one-hop
-expansions), and the "first removable member" probe tests all members'
+loops under a static bound guaranteed by the algorithm, with per-camera
+`done` masks turning finished cameras' iterations into no-ops, and stop
+once every camera is done (one host read per iteration: the plain
+versions run the CPU path, and on a card only as the kernels'
+reference). A flood fill inside a shape grows its reached set one hop
+per iteration until it stops changing; the induced-MST walk's
+components come from a log-doubling transitive closure (ceil(log2 N)
+squarings); the "first removable member" probe tests all members'
 removals at once and picks the first in label order.
 
 Tie-breaking is the reference's: stable sorts break toward the lower
@@ -37,7 +38,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.neighbor_score.ops import neighbor_scores
 
 INF = math.inf
-MAX_CELLS = 128
+MAX_CELLS = 512     # the kernels' cell sets: up to 8 64-bit words
 
 
 def _onehot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -83,10 +84,19 @@ def reach_closure(mask: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
 
 def flood_reach(mask: torch.Tensor, seed: torch.Tensor,
                 adj: torch.Tensor) -> torch.Tensor:
-    """Cells of `mask` reachable from `seed` (both [..., N] bool)."""
-    r = reach_closure(mask, adj).to(torch.float32)
-    hop = torch.matmul((seed & mask).to(torch.float32)[..., None, :], r)
-    return mask & (hop[..., 0, :] > 0)
+    """Cells of `mask` reachable from `seed` (both [..., N] bool) over the
+    [N, N] adjacency: the reached set grows by one hop per iteration
+    until it stops changing (a path inside the mask has at most N - 1
+    hops)."""
+    adj_f = adj.to(torch.float32)
+    reach = seed & mask
+    for _ in range(mask.shape[-1] - 1):
+        grown = mask & (reach | (torch.matmul(reach.to(torch.float32),
+                                              adj_f) > 0))
+        if torch.equal(grown, reach):
+            break
+        reach = grown
+    return reach
 
 
 def is_contiguous(mask: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
@@ -141,6 +151,8 @@ def _evolve_multi(cfg, statics, mask, labels, centroids, has_boxes):
     # swap), or retires a tail — 2n + 2*max_swaps bounds the loop
     for _ in range(2 * n + 2 * cfg.max_swaps):
         done = done | (h_i >= t_i) | (swaps >= cfg.max_swaps)
+        if done.all():
+            break
         H = _rows(order, torch.clamp(h_i, max=n - 1))
         T = _rows(order, torch.clamp(t_i, 0, n - 1))
         lab_h = _rows(labels, H)
@@ -231,6 +243,8 @@ def resize_shape(cfg, statics, mask: torch.Tensor, labels: torch.Tensor,
     stuck = torch.zeros(f, dtype=torch.bool, device=mask.device)
     for _ in range(n):
         live = ~stuck & (mask.sum(-1) < target)
+        if not live.any():
+            break
         free = ((~mask).to(torch.float32) @ adj_f) > 0      # any free nbr
         eligible = mask & free
         H = torch.argmax(torch.where(eligible, labels, -INF), dim=-1)
@@ -247,6 +261,8 @@ def resize_shape(cfg, statics, mask: torch.Tensor, labels: torch.Tensor,
     #    suffice.
     for _ in range(n - 1):
         live = mask.sum(-1) > target
+        if not live.any():
+            break
         T = first_removable(mask, labels, statics.neighbor8)
         mask = mask & ~(_onehot(T, n) & live[:, None])
     return mask
@@ -292,6 +308,8 @@ def walk(statics, mask, start):
     for _ in range(n - 1):
         rest = mask & ~done
         live = rest.any(-1)
+        if not live.any():
+            break
         cross = torch.where(done[:, :, None] & rest[:, None, :], dist, INF)
         idx = torch.argmin(cross.reshape(f, n * n), dim=-1)
         u, v = idx // n, idx % n
@@ -313,6 +331,8 @@ def walk(statics, mask, start):
     slot_ids = torch.arange(n, device=dev)[None, :]
     for _ in range(n):
         live = top > 0
+        if not live.any():
+            break
         u = _rows(stack, torch.clamp(top - 1, min=0))
         top2 = top - 1
         seen = seen | (_onehot(u, n) & live[:, None])
@@ -351,6 +371,8 @@ def budget_walk_plain(cfg, statics, mask, start, labels, budget_s,
     t = t_deg / cfg.rotation_speed
     done = feasible(mask, cnt, t)
     for _ in range(n - 1):
+        if done.all():
+            break
         T = first_removable(mask, labels, statics.neighbor8)
         mask = torch.where(~done[:, None], mask & ~_onehot(T, n), mask)
         o2, c2, td2 = walk(statics, mask, start)
@@ -370,7 +392,7 @@ def budget_walk_plain(cfg, statics, mask, start, labels, budget_s,
 
 def _check(name, n, floats, bools, ints):
     """The kernels' input checks: dtypes, one CUDA device, contiguity and
-    the grid size (cells are bits of two 64-bit words)."""
+    the grid size (cells are bits of up to 8 64-bit words)."""
     _lib.check_cuda(name, *floats)
     _lib.check_cuda(name, *bools, dtypes=(torch.bool,))
     _lib.check_cuda(name, *ints, dtypes=(torch.int64,))

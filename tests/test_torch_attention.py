@@ -45,6 +45,7 @@ FLASH_CASES = [
     (2, 72, 136, 3, 1, 48, False, "float32"),      # Sq != Sk
     (1, 64, 64, 2, 2, 32, False, "bfloat16"),
     (1, 256, 256, 2, 2, 128, True, "float32"),
+    (1, 64, 64, 2, 1, 192, True, "float32"),       # MLA's 192-wide heads
 ]
 
 

@@ -7,12 +7,13 @@ mode). Imports no JAX, so it runs where the card is:
 Tolerances: counts exact; neighbor scores, areas and moments 1e-5
 (float32 sums in another order); the oracle pass's counts, box counts
 and accuracy exact, its areas, centroids and extents 1e-5 and its
-spread as a variance within 1e-2 of a float64 sum, and of the plain
-version's at 22 object slots (see assert_oracle_equal); patch tokens
-1e-4 absolute on values of order 1 (the token product in split TF32 on the tensor cores vs
-torch.matmul); attention 3e-5 in float32 (split-TF32 products, online
-softmax, sums in another order) and 2e-2 in bfloat16;
-IoU 1e-6; NMS masks, matches, changed tiles and int8 residuals exact;
+spread as a variance within 1e-2 of the plain version's and of a
+float64 sum, the kernel's within 1e-3 of the latter (see
+assert_oracle_equal); patch tokens 1e-4 absolute on values of order 1
+(the token product in split TF32 on the tensor cores vs torch.matmul);
+attention 3e-5 in float32 (split-TF32 products, online softmax, sums in
+another order) and 2e-2 in bfloat16; IoU bit-equal (max_abs_err 0);
+NMS masks, matches, changed tiles and int8 residuals exact;
 rmsnorm 1e-5; shape_search and budget_walk decisions (masks, walk
 orders, counts) exact and the walk time 1e-6 relative (its hop sum in
 another order). chip_smoke.py runs the same checks at full-width shapes.
@@ -118,9 +119,9 @@ def test_cell_rasterize_kernel_on_card(cuda):
 
 
 # (F, M, P): one camera, the main path's fleet and a large one; the
-# scene's 22 object slots and the kernel's 128; 2, 8 and 16 channels
+# scene's 22 object slots, 128 and the kernel's 256; 2, 8 and 16 channels
 RASTER_CASES = [(f, m, p) for f in (1, 64, 1024) for m in (22, 128)
-                for p in (2, 8, 16)]
+                for p in (2, 8, 16)] + [(1, 256, 16), (64, 256, 8)]
 
 
 @pytest.mark.requires_cuda
@@ -137,18 +138,16 @@ def test_cell_rasterize_shapes_on_card(cuda, f, m, p):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
-def assert_oracle_equal(got, want, var64, m):
+def assert_oracle_equal(got, want, var64):
     """counts, nbox and acc_true exact; areas, centroid and extent 1e-5;
-    the spread as a variance (spread^2) within 1e-2 of the float64 sum
-    of the same per-object terms (`var64`), the kernel's and the plain
-    version's alike, and at the scene's 22 object slots also within 1e-2
-    of each other. The variance E[c^2] - |E[c]|^2 cancels: E[c^2]
-    reaches ~3e4 deg^2, one float32 ulp of it ~2e-3, and each side lands
-    a few ulps from the exact value whatever the order of its sums (on
-    the card, 128 slots: up to 7.2e-3 for the kernel's warp tree and
-    8.5e-3 for the plain version's reduction, tools/spread_error.py),
-    so two float32 sides can differ by more than 1e-2 where each is
-    within 1e-2 of the exact variance."""
+    the spread as a variance (spread^2) within 1e-2 of the plain
+    version's and of the float64 sum of the same per-object terms
+    (`var64`), at every slot count. The plain version's variance E[c^2]
+    - |E[c]|^2 cancels (E[c^2] reaches ~3e4 deg^2, one float32 ulp of it
+    ~2e-3: up to 8.5e-3 off the float64 sum at 128 slots,
+    tools/spread_error.py); the kernel takes its moments about each
+    window's center, where they cancel little, so it lands within 1e-3
+    of the float64 sum and the two sides within 1e-2 of each other."""
     for name in ("counts", "nbox", "acc_true"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.shape == w.shape and torch.equal(g, w), name
@@ -156,15 +155,15 @@ def assert_oracle_equal(got, want, var64, m):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    rtol=1e-5, atol=1e-5, msg=name)
     k_err, p_err, _, _ = spread_errors(got, want, var64)
-    assert k_err <= 1e-2, f"kernel spread^2 off float64 by {k_err}"
+    assert k_err <= 1e-3, f"kernel spread^2 off float64 by {k_err}"
     assert p_err <= 1e-2, f"plain spread^2 off float64 by {p_err}"
-    if m <= 22:
-        torch.testing.assert_close(got.spread ** 2, want.spread ** 2,
-                                   rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(got.spread ** 2, want.spread ** 2,
+                               rtol=1e-5, atol=1e-2)
 
 
 ORACLE_CASES = [(f, m, p) for f in (1, 64, 1024) for m in (22, 128)
-                for p in (1, 4, 8)]
+                for p in (1, 4, 8)] + [(1, 256, 8), (64, 256, 4),
+                                       (1024, 256, 4)]
 
 
 def oracle_card_args(f, m, seed, *, miss_rate=0.12, enabled_p=0.85):
@@ -186,7 +185,7 @@ def test_oracle_pass_kernel_on_card(cuda, f, m, p):
     assert _lib.launch_counts()["oracle_pass"] == 1
     assert sum(_lib.launch_counts().values()) == 1
     want = oracle_pass_plain(*args, **kw)
-    assert_oracle_equal(got, want, oracle_variance_f64(args, kw), m)
+    assert_oracle_equal(got, want, oracle_variance_f64(args, kw))
     assert float(got.counts.sum()) > 0
 
 
@@ -206,11 +205,34 @@ def test_oracle_pass_edge_cases_on_card(cuda, case):
         kw["cam_salt"] = None
     got = oracle_pass(*args, **kw)
     assert_oracle_equal(got, oracle_pass_plain(*args, **kw),
-                        oracle_variance_f64(args, kw), 22)
+                        oracle_variance_f64(args, kw))
     if case in ("miss1", "all_disabled"):
         assert float(got.counts.sum()) == 0
     if case == "all_disabled":
         assert bool((got.acc_true == 1.0).all())
+
+
+@pytest.mark.requires_cuda
+def test_kernels_refuse_257_slots(cuda):
+    """Past the new 256-slot limits, oracle_pass, cell_rasterize and
+    crop_patchify raise naming the limit, before any launch."""
+    spec, st = oracle_card_args(2, 257, 3)
+    args, kw = oracle_args(st, spec, 4, device=cuda)
+    _lib.reset_launch_counts()
+    with pytest.raises(ValueError, match="256"):
+        oracle_pass(*args, **kw)
+    rargs = [t(x).to(cuda) for x in rasterize_inputs(2, 4, 1, m=257)]
+    with pytest.raises(ValueError, match="256"):
+        cell_rasterize(*rargs, n_moment=2)
+    pargs = patchify_args(cuda, 2, 3, 64, 48, 257, False, seed=1)
+    with pytest.raises(ValueError, match="256"):
+        crop_patchify_batch(*pargs, res=64, patch=16, min_visible=0.25)
+    # 256 slots of 64 px crops at D = 192: a 128-row tile spans 9 crops,
+    # whose masks do not fit beside the 192-wide weight ring
+    pargs = patchify_args(cuda, 2, 3, 64, 192, 256, False, seed=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        crop_patchify_batch(*pargs, res=64, patch=16, min_visible=0.25)
+    assert sum(_lib.launch_counts().values()) == 0
 
 
 @pytest.mark.requires_cuda
@@ -277,6 +299,28 @@ PATCHIFY_CASES = [(3, 5, 224, 192, False), (3, 5, 224, 192, True),
                   (2, 3, 64, 200, True)]       # two feature tiles
 
 
+# (F, K, res, D, object slots): ownership in 2, 4 and 8 words (40, 70,
+# 129 and 256 slots; colours from global memory at 8 words) at the
+# full-width detector's 224 px and, at the smoke detector's width, where
+# a tile spans 9 crops
+MANY_SLOT_CASES = [(3, 5, 224, 192, 40), (2, 4, 224, 192, 70),
+                   (2, 3, 224, 192, 256), (4, 6, 64, 48, 129),
+                   (5, 7, 64, 48, 256)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", MANY_SLOT_CASES,
+                         ids=[str(c) for c in MANY_SLOT_CASES])
+def test_crop_patchify_many_slots_on_card(cuda, case):
+    f, k, res, d, n_obj = case
+    args = patchify_args(cuda, f, k, res, d, n_obj, False, seed=n_obj + f)
+    _lib.reset_launch_counts()
+    got = crop_patchify_batch(*args, res=res, patch=16, min_visible=0.25)
+    assert _lib.launch_counts()["crop_patchify"] == 1
+    want = crop_patchify_plain(*args, res=res, patch=16, min_visible=0.25)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("case", PATCHIFY_CASES,
                          ids=[str(c) for c in PATCHIFY_CASES])
@@ -311,7 +355,8 @@ def search_args(cuda, grid, f, seed):
     return cfg, statics, ss, bw
 
 
-SEARCH_CASES = [(f, n) for n in (25, 50, 128) for f in (1, 64, 1024)]
+SEARCH_CASES = ([(f, n) for n in (25, 50, 128) for f in (1, 64, 1024)]
+                + [(1, 200), (64, 200)])
 
 
 @pytest.mark.requires_cuda
@@ -371,12 +416,22 @@ def test_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):                    # not contiguous
         shape_search_batch(cfg, statics, shape, labels, cent.transpose(0, 1),
                            has, max_cells)
-    # more than 128 cells: 20 x 10
+    # 200 cells (20 x 10, four-word sets) run and agree with the plain
+    # versions; more than 512 cells (30 x 20) raise, naming the limit
     big = OrientationGrid(pan_step=7.5, tilt_step=7.5)
     cfg, statics, ss, (start, labels, budget) = search_args(cuda, big, 2, 0)
-    with pytest.raises(ValueError, match="128"):
+    assert torch.equal(shape_search_batch(cfg, statics, *ss),
+                       shape_search_plain(cfg, statics, *ss))
+    got = budget_walk_batch(cfg, statics, ss[0], start, labels, budget, 0.0)
+    want = budget_walk_plain(cfg, statics, ss[0], start, labels, budget, 0.0)
+    assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    huge = OrientationGrid(pan_step=5.0, tilt_step=3.75)
+    assert huge.n_cells > 512
+    cfg, statics, ss, (start, labels, budget) = search_args(cuda, huge, 2,
+                                                            0)
+    with pytest.raises(ValueError, match="512"):
         shape_search_batch(cfg, statics, *ss)
-    with pytest.raises(ValueError, match="128"):
+    with pytest.raises(ValueError, match="512"):
         budget_walk_batch(cfg, statics, ss[0], start, labels, budget, 0.0)
 
 
@@ -397,8 +452,11 @@ FLASH_CASES = [
     (1, 70, 70, 2, 1, 18, True, 0, torch.float32),      # rows not 16-byte
     (1, 70, 90, 2, 1, 20, False, 0, torch.bfloat16),    # multiples
 ] + [(1 + (dt == torch.float32), 150, 150, 4, 2, d, True, 0, dt)
-     for d in (16, 24, 32, 48, 64, 80, 96, 128)           # every head dim
-     for dt in (torch.float32, torch.bfloat16)]
+     for d in (16, 24, 32, 48, 64, 80, 96, 128, 144, 192, 256)  # every
+     for dt in (torch.float32, torch.bfloat16)] + [         # head dim
+    (2, 100, 164, 4, 2, 192, True, 64, torch.float32),  # MLA's q/k width
+    (1, 300, 300, 2, 2, 256, False, 0, torch.float32),  # several tiles
+]
 
 
 @pytest.mark.requires_cuda
@@ -420,9 +478,9 @@ def test_flash_attention_kernel_on_card(cuda, case):
 
 @pytest.mark.requires_cuda
 def test_flash_attention_rejects_bad_input(cuda):
-    q = torch.zeros(1, 4, 2, 144, device=cuda)
-    with pytest.raises(ValueError):
-        flash_attention(q, q, q)                        # D > 128
+    q = torch.zeros(1, 4, 2, 264, device=cuda)
+    with pytest.raises(ValueError, match="256"):
+        flash_attention(q, q, q)                        # D > 256
     q = torch.zeros(1, 4, 2, 16, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q.double(), q.double(), q.double())
@@ -431,14 +489,32 @@ def test_flash_attention_rejects_bad_input(cuda):
                         q.transpose(1, 2))
 
 
+# widths that are and are not multiples of 4 (16-byte rows or scalar
+# stores), ragged column blocks and row slabs
+BOX_IOU_CASES = [(1, 1), (37, 13), (300, 517), (3, 4), (4, 3), (1, 4095),
+                 (4095, 4), (9217, 3), (3, 9217), (4095, 4095),
+                 (9217, 9217)]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,m", [(1, 1), (37, 13), (300, 517)])
+@pytest.mark.parametrize("n,m", BOX_IOU_CASES)
 def test_box_iou_kernel_on_card(cuda, n, m):
+    """Bit-equal to the plain version (the same float32 operations in
+    the same order; a skipped division is exact), on boxes where a
+    tenth have zero width or height and some repeat exactly."""
     gen = torch.Generator().manual_seed(n + m)
-    a = (torch.rand(n, 4, generator=gen) * 0.3 + 0.05).to(cuda)
-    b = (torch.rand(m, 4, generator=gen) * 0.3 + 0.05).to(cuda)
-    torch.testing.assert_close(box_iou(a, b), box_iou_plain(a, b),
-                               rtol=0, atol=1e-6)
+    a = torch.rand(n, 4, generator=gen) * 0.3 + 0.05
+    b = torch.rand(m, 4, generator=gen) * 0.3 + 0.05
+    for x in (a, b):
+        x[torch.rand(x.shape[0], generator=gen) < 0.05, 2] = 0.0
+        x[torch.rand(x.shape[0], generator=gen) < 0.05, 3] = 0.0
+    b[: min(n, m) // 2] = a[: min(n, m) // 2]
+    a, b = a.to(cuda), b.to(cuda)
+    _lib.reset_launch_counts()
+    got = box_iou(a, b)
+    assert _lib.launch_counts()["box_iou"] == 1
+    want = box_iou_plain(a, b)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.requires_cuda

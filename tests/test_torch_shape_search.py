@@ -23,8 +23,9 @@ exactly, `t` within 1e-6 relative (its hop sum runs in another order;
 the hops of these grids are multiples of 7.5 degrees, so it is exact).
 
 Sizes: 64 cameras on the default 25-cell grid; 12 cameras on the
-50-cell grid (pan step 15), where the plain version's [F, N, N, N]
-removal probes make 64 cameras take ~25 s per case on one CPU thread.
+50-cell grid (pan step 15) and 4 on the 200-cell grid (7.5 degrees,
+four-word cell sets on the card), where the plain version's [F, N, N]
+removal probes grow with N^3.
 """
 import numpy as np
 import pytest
@@ -48,7 +49,7 @@ from torch_kernel_inputs import SEARCH_GRIDS, search_state  # noqa: E402
 F32 = np.float32
 INF = F32(np.inf)
 GRIDS = SEARCH_GRIDS
-FLEET = {25: 64, 50: 12}
+FLEET = {25: 64, 50: 12, 200: 4}
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +308,7 @@ def _tn(x):
 # tests
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,seed", [(25, 0), (25, 1), (50, 2)])
+@pytest.mark.parametrize("n,seed", [(25, 0), (25, 1), (50, 2), (200, 9)])
 def test_model_shape_search_matches_plain(n, seed):
     grid, shape, labels, has, cent = fleet_state(seed, n)
     f = shape.shape[0]
@@ -328,7 +329,7 @@ def test_model_shape_search_matches_plain(n, seed):
 
 
 @pytest.mark.parametrize("n,seed,per_cell", [(25, 3, 0.0), (25, 4, 0.004),
-                                             (50, 5, 0.0)])
+                                             (50, 5, 0.0), (200, 13, 0.0)])
 def test_model_budget_walk_matches_plain(n, seed, per_cell):
     grid, shape, labels, _, _ = fleet_state(seed, n)
     f = shape.shape[0]

@@ -1,6 +1,6 @@
 """Seeded numpy inputs for the port's kernel tests, shaped like the main
 path's (22 object slots, the default 5x5 grid's 75 windows), and fleet
-states for the shape-search kernels on grids of 25, 50 and 128 cells.
+states for the shape-search kernels on grids of 25 to 200 cells.
 Imports numpy and the port only, so the card-only tests run where JAX is
 not installed."""
 import numpy as np
@@ -12,10 +12,12 @@ from repro_torch.kernels.neighbor_score.ops import geometry_arrays
 
 M = 22          # 14 people + 8 cars
 GEO = geometry_arrays(DEFAULT_GRID)
-# the default 5x5 grid, bench_deepdive's pan step 15 (10x5) and the
-# kernels' largest grid (16x8)
+# the default 5x5 grid, bench_deepdive's pan step 15 (10x5), the largest
+# grid of two-word cell sets (16x8) and the 7.5-degree grid (20x10, four
+# words)
 SEARCH_GRIDS = {25: DEFAULT_GRID, 50: OrientationGrid(pan_step=15.0),
-                128: OrientationGrid(pan_step=9.375, tilt_step=9.375)}
+                128: OrientationGrid(pan_step=9.375, tilt_step=9.375),
+                200: OrientationGrid(pan_step=7.5, tilt_step=7.5)}
 
 
 def t(x):
@@ -52,13 +54,14 @@ def rasterize_inputs(f, p, seed, m=M):
     return ox, oy, ow, oh, draw, a0, a1, win
 
 
-def patchify_inputs(f, k, d, seed, shared):
+def patchify_inputs(f, k, d, seed, shared, m=M):
+    """M object slots (14 people of the default 22, else 3/5 people)."""
     rng = np.random.default_rng(seed)
-    pos = rng.uniform([0, 0], [150, 75], (f, M, 2)).astype(np.float32)
-    size = rng.uniform(1.5, 9.0, (f, M, 2)).astype(np.float32)
+    pos = rng.uniform([0, 0], [150, 75], (f, m, 2)).astype(np.float32)
+    size = rng.uniform(1.5, 9.0, (f, m, 2)).astype(np.float32)
     size[:, -2:] = 0.0                             # disabled slots
-    kind = (np.arange(M) >= 14).astype(np.int32)
-    oid = rng.integers(0, 4000, (f, M)).astype(np.int32)
+    kind = (np.arange(m) >= (14 if m == M else 3 * m // 5)).astype(np.int32)
+    oid = rng.integers(0, 4000, (f, m)).astype(np.int32)
     wins_all = window_arrays(DEFAULT_GRID)
     if shared:
         wins = wins_all[:k]

@@ -4,7 +4,7 @@ per-object terms, at the card tests' shapes.
 
     PYTHONPATH=src python tools/spread_error.py
 
-For F = 1024 cameras, M = 22 and 128 object slots and 1, 4 and 8
+For F = 1024 cameras, M = 22, 128 and 256 object slots and 1, 4 and 8
 workload pairs (the seeded states of tests/test_torch_kernels_cuda.py's
 test_oracle_pass_kernel_on_card), prints per case the largest |variance
 - float64 variance| of the kernel and of the plain version (each variance
@@ -44,7 +44,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     rows = []
-    for m in (22, 128):
+    for m in (22, 128, 256):
         for p in (1, 4, 8):
             f = 1024
             people = 14 if m == 22 else 100
