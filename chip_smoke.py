@@ -36,6 +36,20 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      shapes); the three kernels are timed on the last step's inputs
      (and the search kernels, printed only, on random states at larger
      fleets and grids);
+  5b. drive the learning path (in-episode distillation, paper §3.4):
+     run_fleet with distill=DistillSpec() (head-only AdamW, the paper's
+     mode) and metrics=MetricsSpec() at the same cell, then with
+     DistillSpec(head_only=False) at 3 steps (depth cut to stay inside
+     the time limit), counters set to 0 just before and read just after:
+     the four main-path kernels once per step and no other (the update
+     launches none); every recorded oracle_pass, shape_search,
+     budget_walk and crop_patchify call equal to its plain version; the
+     per-step loss finite and >= 0; the learned heads moved; the
+     backbone (full mode: the patch embedding) bit-unchanged. Prints
+     steady_s, its ratio to the frozen run's, peak memory, the loss per
+     step and the chosen_rank median; then the smoke detector with
+     learning on, 2 cameras, 8 steps, on the card and on the CPU: equal
+     decisions, loss and learned heads within stated tolerances;
   6. drive the ViT flash path: the main path's own crop_patchify tokens
      (64 cameras x 18 crops) through vit_features_tokens(impl="flash")
      with the counters set to 0 just before — flash_attention must launch
@@ -53,7 +67,10 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      spec at 2 cameras on the card and on the CPU must decide alike;
      oracle_pass on a 256-slot scene;
   9. time one step of the main path stage by stage (the scene advance
-     and the oracle pass apart);
+     and the oracle pass apart), then its learn stage: scoring through
+     per-camera heads, teacher targets, ring harvest and the update,
+     and count the operations of one learn hook that wait for the
+     card (sync debug mode);
  10. print one JSON line describing every kernel, the card line again,
      and as the last line {"ok": true, "device": {...}}.
 
@@ -68,6 +85,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -134,10 +152,22 @@ from repro_torch.kernels.shape_search.ops import (  # noqa: E402
     shape_search_batch,
     shape_search_plain,
 )
+from repro_torch.learn.loop import distill_step  # noqa: E402
+from repro_torch.learn.pairs import (  # noqa: E402
+    harvest_into_buffer,
+    select_sent_windows,
+    teacher_window_targets,
+)
+from repro_torch.learn.spec import DistillSpec  # noqa: E402
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
+    detector_init,
     head_outputs,
     neck_features,
+)
+from repro_torch.obs.metrics import (  # noqa: E402
+    MetricsSpec,
+    median_valid_rank,
 )
 from repro_torch.models.vit import vit_features_tokens  # noqa: E402
 from repro_torch.scene import observe as observe_module  # noqa: E402
@@ -159,9 +189,11 @@ from repro_torch.scene.scene import (  # noqa: E402
     kind_mask,
     scene_fleet_params,
 )
+from repro_torch.train.optim import tree_leaves  # noqa: E402
 
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
+FULL_STEPS = 3          # the full-param distill episode's depth
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
 MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
                      "crop_patchify")
@@ -1000,6 +1032,31 @@ def random_search_phase(dev) -> None:
           + "; ".join(times), flush=True)
 
 
+def patchify_phase(calls, steps: int, tag: str) -> dict:
+    """crop_patchify against its plain version on the inputs of every
+    recorded call of an episode (tokens within 1e-4, as in kernel_phase),
+    timed on the last call's inputs. Returns its row."""
+    if len(calls) != steps:
+        raise AssertionError(f"crop_patchify: {len(calls)} calls "
+                             f"recorded, want {steps}")
+    err = 0.0
+    for step, (args, kw, got) in enumerate(calls):
+        want = crop_patchify_plain(*args, **kw)
+        check_close(f"crop_patchify{tag} step {step}", (got,), (want,),
+                    atol=1e-4)
+        err = max(err, max_err((got,), (want,)))
+    args, kw, _ = calls[-1]
+    print(f"crop_patchify{tag}: kernel and plain agree on all {steps} "
+          f"steps (max abs err {err:.3e})", flush=True)
+    row = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: crop_patchify_batch(*args, **kw),
+                                    10),
+        plain_ms=cuda_ms(lambda: crop_patchify_plain(*args, **kw), 3),
+        bound=patchify_bound(args, kw), library_ms=None)
+    print_row("crop_patchify" + tag, row)
+    return row
+
+
 def beyond_limits_phase(dev) -> None:
     """The main path past the kernels' old limits: run_fleet(provider=
     "detector") at full width on the 200-cell grid with a 40-slot scene,
@@ -1045,23 +1102,7 @@ def beyond_limits_phase(dev) -> None:
     tag = f"[{n_cells} cells, M={sum(BIG_SCENE.values())}]"
     oracle_phase(orec.calls, steps, tag)
     search_phase(rec.calls, steps, tag)
-    err = 0.0
-    for step, (args, kw, got) in enumerate(prec.calls):
-        want = crop_patchify_plain(*args, **kw)
-        check_close(f"crop_patchify step {step}", (got,), (want,),
-                    atol=1e-4)
-        err = max(err, max_err((got,), (want,)))
-    if len(prec.calls) != steps:
-        raise AssertionError(f"crop_patchify: {len(prec.calls)} calls "
-                             f"recorded, want {steps}")
-    args, kw, _ = prec.calls[-1]
-    print(f"crop_patchify{tag}: kernel and plain agree on all {steps} "
-          f"steps (max abs err {err:.3e})", flush=True)
-    print_row("crop_patchify" + tag, dict(
-        max_abs_err=err, ms=cuda_ms(lambda: crop_patchify_batch(*args, **kw),
-                                    10),
-        plain_ms=cuda_ms(lambda: crop_patchify_plain(*args, **kw), 3),
-        bound=patchify_bound(args, kw), library_ms=None))
+    patchify_phase(prec.calls, steps, tag)
 
     # the same spec, 2 cameras, the smoke detector: card vs CPU
     small = dataclasses.replace(spec, n_cameras=2, provider_kwargs={
@@ -1096,6 +1137,150 @@ def beyond_limits_phase(dev) -> None:
     if _lib.launch_counts()["oracle_pass"] != 1:
         raise AssertionError("oracle_pass at 256 slots did not launch")
     oracle_phase([(oargs, okw, got)], 1, "[25 cells, M=256]")
+
+
+def _tree_equal(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _per_camera_equal(per_camera, shared) -> bool:
+    """Every camera's row of `per_camera` bit-equal to `shared`."""
+    return all(torch.equal(x, y[None].expand_as(x)) for x, y in zip(
+        tree_leaves(per_camera), tree_leaves(shared)))
+
+
+def distill_phase(spec: FleetRunSpec, frozen_steady_s: float, dev,
+                  label: str) -> dict:
+    """The learning path: run_fleet with spec.distill and spec.metrics
+    at the main path's cell, counters set to 0 just before and read just
+    after: oracle_pass, crop_patchify, shape_search and budget_walk once
+    per step (the update launches no kernel of its own) and no other;
+    every recorded call equal to its plain version; the per-step loss
+    finite and >= 0 on updating steps; the learned heads (or networks)
+    moved; the backbone (full mode: the patch embedding) bit-unchanged
+    against the initial weights, made again from the same seed. Prints
+    the run's line; returns its launch counts and timings."""
+    steps = spec.n_steps + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    with (SearchRecorder() as rec, OracleRecorder() as orec,
+          PatchifyRecorder() as prec):
+        result = run_fleet(spec)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    uneven = [k for k in MAIN_PATH_KERNELS if counts[k] != steps]
+    stray = [k for k, v in counts.items()
+             if v and k not in MAIN_PATH_KERNELS]
+    if uneven or stray:
+        raise AssertionError(f"{label}: launches {counts}, want "
+                             f"{MAIN_PATH_KERNELS} x {steps} only")
+    chosen = torch.tensor(result.chosen)
+    acc = torch.tensor(result.acc_per_step)
+    if (chosen.shape != (spec.n_steps, spec.n_cameras)
+            or not bool(((chosen >= 0) & (chosen < DEFAULT_GRID.n_cells))
+                        .all())
+            or not bool(((acc >= 0) & (acc <= 1)).all())):
+        raise AssertionError(f"{label}: malformed result {result.chosen} "
+                             f"{result.acc_per_step}")
+    loss = torch.tensor(result.distill_loss)
+    every = spec.distill.every
+    upd = torch.tensor([(e + 1) % every == 0 for e in range(spec.n_steps)])
+    if not (bool(torch.isfinite(loss).all()) and bool((loss[upd] >= 0).all())
+            and bool((loss[~upd] == -1.0).all())):
+        raise AssertionError(f"{label}: distill_loss {result.distill_loss}")
+    step_loss = result.metrics["distill_loss"]
+    if not bool(torch.isfinite(step_loss).all()):
+        raise AssertionError(f"{label}: per-camera loss not finite")
+
+    provider, _ = result.learned
+    init = detector_init(torch.Generator().manual_seed(0), provider.det_cfg,
+                         dev)
+    if not _tree_equal(provider.det_params, init):
+        raise AssertionError(f"{label}: the shared detector params were "
+                             f"written")
+    learned = result.learned_params(None)
+    if spec.distill.head_only:
+        frozen_ok = _tree_equal(learned["backbone"], init["backbone"])
+    else:
+        frozen_ok = _per_camera_equal(
+            learned["backbone"]["vit"]["patch_embed"],
+            init["backbone"]["vit"]["patch_embed"])
+    moved = not _per_camera_equal(learned["heads"], init["heads"])
+    if not frozen_ok:
+        raise AssertionError(f"{label}: frozen params changed")
+    if not moved:
+        raise AssertionError(f"{label}: the learned heads did not move")
+
+    tag = f"[{label}]"
+    rows = {"oracle_pass": oracle_phase(orec.calls, steps, tag),
+            **search_phase(rec.calls, steps, tag),
+            "crop_patchify": patchify_phase(prec.calls, steps, tag)}
+    t = result.timings
+    ranks = result.metrics["chosen_rank"]
+    rank = median_valid_rank(ranks)
+    gradable = f"{int((ranks > 0).sum())} of {ranks.numel()}"
+    print(f"{label}: accuracy={result.accuracy:.6f} "
+          f"frames_sent={list(result.frames_sent)} "
+          f"compile_s={t['compile_s']:.3f} steady_s={t['steady_s']:.3f} "
+          f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
+          f"peak_mem_gib={peak:.2f} (with the recorders' clones of every "
+          f"kernel call) "
+          f"steady_s/frozen={t['steady_s'] / frozen_steady_s:.3f} "
+          f"distill_loss={[round(v, 6) for v in result.distill_loss]} "
+          f"chosen_rank_median={rank} (camera-steps gradable: {gradable}; "
+          f"a step with fewer than 2 explored cells is not) "
+          f"launches={counts} (over "
+          f"{spec.n_steps} steps + 1 warm-up step; backbone"
+          f"{'' if spec.distill.head_only else ' patch embedding'} "
+          f"bit-unchanged, heads moved)", flush=True)
+    return dict(counts=counts, timings=t, rows=rows)
+
+
+def distill_parity_phase() -> None:
+    """Small input with learning on: the smoke detector, 2 cameras, 8
+    steps, shortlist_k=9, a 3 fps budget (several cells explored per
+    step, so chosen_rank is gradable), DistillSpec(), on the card and on
+    the CPU:
+    the decisions (explored, order, zooms, sent, chosen) equal; the
+    per-step loss within 1e-4 relative (float32 convolutions and sums
+    in other orders); the learned heads: 98% of elements within 1e-5 and
+    every one within 3 lr per update (an AdamW element whose gradient is
+    at round-off level steps by up to ~lr either way on either side)."""
+    spec = FleetRunSpec(provider="detector", n_cameras=2, n_steps=N_STEPS,
+                        shortlist_k=9, budget={"fps": 3.0}, seed=3,
+                        distill=DistillSpec(), metrics=MetricsSpec())
+    on_card, on_cpu = run_fleet(spec), run_fleet(spec, device="cpu")
+    frozen = run_fleet(dataclasses.replace(spec, distill=None))
+    for k in ("explored", "order", "zooms", "sent", "chosen"):
+        if not torch.equal(getattr(on_card.out, k).cpu(),
+                           getattr(on_cpu.out, k)):
+            raise AssertionError(f"learning, small input: card vs CPU "
+                                 f"{k} differ: {on_card.chosen} vs "
+                                 f"{on_cpu.chosen}")
+    loss_c = torch.tensor(on_card.distill_loss)
+    loss_h = torch.tensor(on_cpu.distill_loss)
+    loss_err = float(((loss_c - loss_h).abs() / loss_h.abs()).max())
+    if loss_err > 1e-4:
+        raise AssertionError(f"learning, small input: loss differs by "
+                             f"{loss_err} relative")
+    errs = torch.cat([(x.cpu() - y).abs().reshape(-1) for x, y in zip(
+        tree_leaves(on_card.learned_params(None)["heads"]),
+        tree_leaves(on_cpu.learned_params(None)["heads"]))])
+    close = float((errs <= 1e-5).float().mean())
+    if close < 0.98 or float(errs.max()) > 3 * DistillSpec().lr * N_STEPS:
+        raise AssertionError(f"learning, small input: heads differ "
+                             f"({close:.4f} within 1e-5, max "
+                             f"{float(errs.max()):.3e})")
+    print(f"learning, small input: card and CPU agree (chosen "
+          f"{on_card.chosen}; loss max rel err {loss_err:.3e}; heads "
+          f"{close:.4f} of elements within 1e-5, max abs err "
+          f"{float(errs.max()):.3e}); chosen_rank median on the card "
+          f"{median_valid_rank(on_card.metrics['chosen_rank'])} learning, "
+          f"{median_valid_rank(frozen.metrics['chosen_rank'])} frozen",
+          flush=True)
 
 
 def vit_flash_phase(spec: FleetRunSpec):
@@ -1241,10 +1426,11 @@ def kernel_api_phase(dev, dets) -> dict:
     return counts
 
 
-def stage_phase(spec: FleetRunSpec) -> None:
+def stage_phase(spec: FleetRunSpec, dspec: DistillSpec) -> None:
     """Where one step's time goes: the main path's first step, stage by
     stage, with the card synchronised around each (host clock, warm:
-    the second of two passes is reported)."""
+    the second of two passes is reported); then the learn stage of that
+    step under `dspec` (`learn_stages`)."""
     prep = prepare_fleet_run(spec)
     p, st, cfg, wl = prep.provider, prep.state, prep.cfg, prep.wl
     sc, dp = p.init_carry(st)
@@ -1281,12 +1467,61 @@ def stage_phase(spec: FleetRunSpec) -> None:
                                        p.thresh, p.geo_thresh, o.acc_true,
                                        n_zoom=len(cfg.zoom_levels)))
             obs = FleetObs(*do, mbps=p.scene.mbps[0], rtt=p.scene.rtt[0])
-            _, ms["controller_step"] = timed(
+            (st2, out), ms["controller_step"] = timed(
                 lambda: fleet_step(cfg, wl, prep.statics, st, obs))
+            learn_ms = learn_stages(dspec, prep, sc1, dp, kinds, noise, st,
+                                    st2, out, timed)
     total = sum(ms.values())
+    syncs = learn_ms.pop("learn_syncs")
     print("stages (ms, one step): " + " ".join(
-        f"{k}={v:.3f}" for k, v in ms.items()) + f" total={total:.3f}",
-        flush=True)
+        f"{k}={v:.3f}" for k, v in {**ms, **learn_ms}.items())
+        + f" total={total:.3f} (frozen step) total_with_learn="
+        f"{total + learn_ms['learn'] + learn_ms['score_learn_vs_fused']:.3f}"
+        f" (learn: head_only={dspec.head_only} {dspec.optimizer}; "
+        f"synchronizing calls in one learn hook: {syncs})", flush=True)
+
+
+def learn_stages(dspec, prep, sc1, dp, kinds, noise, st, st2, out, timed):
+    """The learn stage of one step (DistillSpec `dspec`, the same cell
+    and inputs as the frozen stages): the scoring through per-camera
+    heads that stages the payload (beside the frozen scoring it
+    replaces), then the teacher targets of the sent windows, the ring
+    harvest and the optimizer update. -> {stage: ms}."""
+    p = dataclasses.replace(prep.provider, distill=dspec)
+    cfg = prep.cfg
+    lc = p.init_carry(prep.state)[2]
+    ms = {}
+    (_, lc), t_learn = timed(lambda: p._score_learn(cfg, st, sc1, dp, lc,
+                                                    kinds, noise))
+    _, t_fused = timed(lambda: p._score_fused(cfg, st, sc1, dp, kinds,
+                                              noise))
+    ms["score_learn_vs_fused"] = t_learn - t_fused
+    (sel, ok), ms["learn_select"] = timed(lambda: select_sent_windows(
+        out, len(cfg.zoom_levels), dspec.harvest))
+    tgt, ms["learn_targets"] = timed(lambda: teacher_window_targets(
+        p.scene.spec, p.scene.teach, p.scene.params, sc1,
+        (st2.step_idx - 1) * p.scene.stride, p.scene.windows[sel],
+        p.det_cfg.max_boxes, st2.rng[:, 0]))
+    buf, ms["learn_harvest"] = timed(lambda: harvest_into_buffer(
+        lc.buf, lc.staged, lc.staged_widx, sel, ok, *tgt))
+    lc = lc._replace(buf=buf)
+    _, ms["learn_update"] = timed(lambda: distill_step(dspec, p.det_cfg, lc,
+                                                       1))
+    ms["learn"] = (ms["learn_select"] + ms["learn_targets"]
+                   + ms["learn_harvest"] + ms["learn_update"])
+
+    # the learn hook once more with the card's sync debug mode on: each
+    # operation that waits for the device's queue warns once
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            p.learn(cfg, prep.wl, (sc1, dp, lc), st2, out, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ms["learn_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    return ms
 
 
 def main() -> int:
@@ -1322,9 +1557,22 @@ def main() -> int:
         provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
         shortlist_k=SHORTLIST_K,
         provider_kwargs={"det_cfg": get_config("madeye-approx")})
-    _, counts, calls, oracle_calls = main_path_phase(spec)
+    main_result, counts, calls, oracle_calls = main_path_phase(spec)
     rows["oracle_pass"] = oracle_phase(oracle_calls)
     rows.update(search_phase(calls))
+    frozen_s = main_result.timings["steady_s"]
+    del main_result
+    # the learning path: head-only (the paper's mode) at the cell's
+    # depth; full-param at 3 steps, cut in depth only to keep the
+    # script inside its time limit
+    distill_phase(dataclasses.replace(spec, distill=DistillSpec(),
+                                      metrics=MetricsSpec()),
+                  frozen_s, dev, "distill path")
+    distill_phase(dataclasses.replace(
+        spec, n_steps=FULL_STEPS, distill=DistillSpec(head_only=False),
+        metrics=MetricsSpec()), frozen_s * FULL_STEPS / N_STEPS, dev,
+        f"distill path, full mode (depth cut to {FULL_STEPS} steps)")
+    distill_parity_phase()
     random_search_phase(dev)
     vit_row, dets = vit_flash_phase(spec)
     counts["flash_attention"] = vit_row["launches"]
@@ -1332,7 +1580,7 @@ def main() -> int:
     for name in ("box_iou", "frame_delta", "rmsnorm"):
         counts[name] = api_counts[name]
     beyond_limits_phase(dev)
-    stage_phase(spec)
+    stage_phase(spec, DistillSpec())
 
     kernels = []
     for name, r in rows.items():

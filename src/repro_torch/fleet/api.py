@@ -13,6 +13,10 @@
     >>> result = run_fleet(spec)           # on the CUDA card
     >>> result.accuracy, result.frames_sent[-1]
 
+`metrics` turns on the in-episode FleetMetrics (`result.metrics`) and
+`distill` the in-episode distillation of the detector (`result
+.distill_loss`, `result.learned_params(camera)`).
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 without a card they raise rather than fall back to the CPU.
 """
@@ -34,6 +38,7 @@ from repro_torch.fleet.runner import (
     make_detector_provider,
     make_scene_provider,
     run_fleet_episode,
+    save_detector_params,
 )
 from repro_torch.fleet.state import (
     FleetConfig,
@@ -45,6 +50,8 @@ from repro_torch.fleet.state import (
     workload_spec,
 )
 from repro_torch.fleet.step import FleetStepOut
+from repro_torch.learn.spec import DistillSpec, normalize_distill
+from repro_torch.obs.metrics import MetricsSpec, normalize_metrics
 
 # the serving launcher's default 4-query workload, as (model, object,
 # task) triples
@@ -96,13 +103,6 @@ def _jsonable(x):
     raise TypeError(f"{type(x).__name__} is not JSON-serializable")
 
 
-def _off(x) -> bool:
-    """The spec's rule for optional features: None/False, or a dict
-    with enabled=False, mean off."""
-    return (x is None or x is False
-            or (isinstance(x, dict) and not x.get("enabled", True)))
-
-
 @dataclass(frozen=True)
 class FleetRunSpec:
     """Everything that defines one fleet experiment, declaratively; the
@@ -121,16 +121,22 @@ class FleetRunSpec:
     # how many of the N*Z windows each camera renders + scores per step
     # (detector provider; None = exhaustive)
     shortlist_k: int | None = None
-    metrics: Any = None     # in-episode telemetry (not ported: must be off)
-    distill: Any = None     # in-episode distillation (not ported: off)
+    # in-episode telemetry: None/False = off (the exact metrics-free
+    # episode), True = full MetricsSpec, a dict/MetricsSpec picks metric
+    # families; normalized to the dataclass so the spec JSON matches the
+    # reference's
+    metrics: MetricsSpec | None = None
+    # in-episode distillation (paper §3.4): None/False = frozen params,
+    # True = default DistillSpec, a dict/DistillSpec picks optimizer /
+    # lr / cadence / ring; detector provider only
+    distill: DistillSpec | None = None
 
     def __post_init__(self):
         object.__setattr__(
             self, "workload",
             tuple(tuple(q) for q in self.workload))
-        for name in ("metrics", "distill"):
-            if _off(getattr(self, name)):
-                object.__setattr__(self, name, None)
+        object.__setattr__(self, "metrics", normalize_metrics(self.metrics))
+        object.__setattr__(self, "distill", normalize_distill(self.distill))
 
     # -- object views ---------------------------------------------------
     def grid_obj(self) -> OrientationGrid:
@@ -181,20 +187,19 @@ class PreparedFleetRun:
     build_s: float
 
     def episode(self, provider=None, state=None):
+        """Run the episode with spec.metrics: `run_fleet_episode`'s
+        (state, out, extras, carry)."""
         return run_fleet_episode(
             self.cfg, self.wl, self.statics,
             self.state if state is None else state,
-            self.provider if provider is None else provider)
+            self.provider if provider is None else provider,
+            metrics=self.spec.metrics)
 
 
 def prepare_fleet_run(spec: FleetRunSpec, *, device=None
                       ) -> PreparedFleetRun:
     """Resolve a FleetRunSpec: registry lookup and provider
     construction — everything up to (but not including) the episode."""
-    for name in ("metrics", "distill"):
-        if getattr(spec, name) is not None:
-            raise NotImplementedError(
-                f"FleetRunSpec.{name} is not ported to this package")
     if spec.shard is not None and spec.shard.get("kind") != "none":
         raise NotImplementedError("sharded fleets are not ported to this "
                                   "package")
@@ -206,6 +211,9 @@ def prepare_fleet_run(spec: FleetRunSpec, *, device=None
     kwargs = dict(spec.provider_kwargs)
     if spec.shortlist_k is not None:
         kwargs["shortlist_k"] = spec.shortlist_k
+    if spec.distill is not None:
+        # factories without a per-window model to train reject it
+        kwargs["distill"] = spec.distill
     t0 = time.perf_counter()
     provider, state = factory(
         grid, workload, cfg, n_cameras=spec.n_cameras,
@@ -220,8 +228,10 @@ def prepare_fleet_run(spec: FleetRunSpec, *, device=None
 @dataclass
 class FleetResult:
     """Typed result of one fleet episode: host-side summaries
-    (JSON-round-trippable) plus, from `run_fleet`, the final `state` and
-    the per-step `out` (FleetStepOut, leaves [E, F, ...])."""
+    (JSON-round-trippable) plus, from `run_fleet`, the final `state`, the
+    per-step `out` (FleetStepOut, leaves [E, F, ...]), with spec.metrics
+    the `metrics` dict (leaves [E, F]) and with spec.distill the
+    `learned` handle; `to_json` drops those four."""
     spec: FleetRunSpec
     n_cameras: int
     n_steps: int
@@ -231,8 +241,31 @@ class FleetResult:
     frames_sent: tuple          # [E] frames shipped fleet-wide
     mean_shape: float           # mean explored-shape size
     timings: dict               # build_s, compile_s, steady_s, episode_s
+    # spec.distill runs only: [E] fleet-mean distill loss over the
+    # cameras that updated that step (-1.0 = off-cadence/idle step)
+    distill_loss: tuple | None = None
     state: FleetState | None = None
     out: FleetStepOut | None = None
+    metrics: dict | None = None
+    # spec.distill runs only: (provider, final carry) — the learned
+    # per-camera params live in the carry; on the device, not serialized
+    learned: Any = None
+
+    def learned_params(self, camera: int | None = 0):
+        """Full detector params with camera `camera`'s learned subtree
+        merged in (None keeps the leading fleet axis on trained leaves).
+        Distillation runs only."""
+        if self.learned is None:
+            raise ValueError(
+                "no learned params: run with FleetRunSpec(distill=...)")
+        provider, carry = self.learned
+        return provider.learned_params(carry, camera=camera)
+
+    def save_learned_params(self, path: str, camera: int = 0) -> str:
+        """Checkpoint one camera's distilled detector as a
+        `save_detector_params` .npz (loadable by either package's
+        `load_detector_params`, or as `det_params="..."`)."""
+        return save_detector_params(path, self.learned_params(camera))
 
     @property
     def camera_steps_per_s(self) -> float:
@@ -240,9 +273,11 @@ class FleetResult:
         return self.n_cameras * self.n_steps / max(t, 1e-9)
 
     def to_json(self, **dumps_kwargs) -> str:
-        d = dataclasses.asdict(
-            dataclasses.replace(self, state=None, out=None))
-        d.pop("state"), d.pop("out")
+        # drop the device payload before asdict, which would deep-copy it
+        d = dataclasses.asdict(dataclasses.replace(
+            self, state=None, out=None, metrics=None, learned=None))
+        for name in ("state", "out", "metrics", "learned"):
+            d.pop(name)
         d["spec"] = json.loads(self.spec.to_json())
         return json.dumps(d, default=_jsonable, **dumps_kwargs)
 
@@ -253,6 +288,8 @@ class FleetResult:
         d["acc_per_step"] = tuple(d["acc_per_step"])
         d["chosen"] = tuple(tuple(c) for c in d["chosen"])
         d["frames_sent"] = tuple(d["frames_sent"])
+        if d.get("distill_loss") is not None:
+            d["distill_loss"] = tuple(d["distill_loss"])
         return cls(**d)
 
 
@@ -270,24 +307,44 @@ def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
     torch.backends.cudnn.allow_tf32 = False) so the detector runs in full
     float32, as the model is specified. timings["compile_s"] is one
     warm-up step on the initial state (its result discarded; the kernels
-    are built and loaded there), timings["steady_s"] the whole episode
-    after it; `camera_steps_per_s` is computed from steady_s."""
+    are built and loaded there; with distillation on it takes an update
+    of its own fresh LearnState), timings["steady_s"] the whole episode
+    after it; `camera_steps_per_s` is computed from steady_s. The
+    episode runs under torch.no_grad(); the distillation update takes
+    its gradients with torch.func, which that does not switch off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prep = prepare_fleet_run(spec, device=device)
     dev = prep.device
+    mspec = spec.metrics
 
     with torch.no_grad():
         t0 = time.perf_counter()
         episode_step(prep.cfg, prep.wl, prep.statics, prep.state,
-                     prep.provider, prep.provider.init_carry(prep.state), 0)
+                     prep.provider, prep.provider.init_carry(prep.state), 0,
+                     metrics=mspec)
         _sync(dev)
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        state, out = prep.episode()
+        res = prep.episode()
         _sync(dev)
         steady_s = time.perf_counter() - t0
+
+    state, out, ex, carry = res
+    fleet_metrics = ex.get("metrics")
+    distill_loss = learned = None
+    if "learn" in ex:
+        # fleet-mean loss over the cameras that updated each step; -1.0
+        # marks off-cadence/idle steps
+        loss = ex["learn"]["loss"].cpu().numpy().astype(np.float32)
+        upd = loss >= 0.0
+        nupd = upd.sum(axis=1)
+        distill_loss = tuple(
+            float(v) for v in np.where(
+                nupd > 0, (loss * upd).sum(axis=1) / np.maximum(nupd, 1),
+                -1.0))
+        learned = (prep.provider, carry)
 
     acc = out.acc_chosen.cpu().numpy().astype(np.float32)      # [E, F]
     sent = out.sent.cpu().numpy()                               # [E, F, N]
@@ -304,4 +361,5 @@ def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
         timings={"build_s": prep.build_s, "compile_s": compile_s,
                  "steady_s": steady_s,
                  "episode_s": compile_s + steady_s},
-        state=state, out=out)
+        distill_loss=distill_loss, state=state, out=out,
+        metrics=fleet_metrics, learned=learned)

@@ -15,8 +15,11 @@ that owns a carry (`init_carry`), per-step inputs (`scan_xs`, leading
     shape search, kernels/crop_patchify rasterizes them straight into
     ViT patch embeddings, one batched detector forward over the [F*K]
     crops scores them, and the controller ranks on those detections;
-    the oracle only grades what it chose (acc_true). Detector params are
-    frozen (no in-episode learning in this package yet).
+    the oracle only grades what it chose (acc_true). With a DistillSpec
+    the provider also learns in the episode (paper §3.4, repro_torch
+    .learn): per-camera heads (or whole networks) score the shortlist
+    and train on teacher grades of the crops the budget sent, after
+    every controller step.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.configs import DetectorConfig, get_smoke_config
 from repro_torch.core import ewma
@@ -40,11 +44,25 @@ from repro_torch.fleet.state import (
 )
 from repro_torch.fleet.step import FleetObs, FleetStepOut, fleet_step
 from repro_torch.kernels.crop_patchify.ops import crop_patchify
+from repro_torch.learn.loop import (
+    distill_step,
+    init_learn,
+    merged_params,
+)
+from repro_torch.learn.pairs import (
+    harvest_into_buffer,
+    select_sent_windows,
+    teacher_window_targets,
+)
+from repro_torch.learn.spec import normalize_distill
 from repro_torch.models.detector import (
+    detections_from_feats,
     detector_forward_tokens,
     detector_init,
+    detector_neck_feats_tokens,
     params_from_numpy,
 )
+from repro_torch.obs.metrics import step_metrics
 from repro_torch.scene.observe import (
     TeacherArrays,
     detections_obs,
@@ -147,20 +165,34 @@ class DetectorProvider:
     """Scene-backed provider with the approximation model in the loop:
     shortlisted candidate windows are rasterized into patch tokens by
     the crop_patchify kernel and scored by one batched detector forward
-    per step. Build with `make_detector_provider`."""
+    per step. Build with `make_detector_provider`.
+
+    With `distill` set (a repro_torch.learn.DistillSpec) the provider
+    LEARNS in the episode: a LearnState (per-camera trainable params,
+    optimizer state, pair ring) joins the carry, the forward routes
+    through the per-camera params, and after each fleet_step the `learn`
+    hook harvests teacher pairs from the SENT crops and takes a
+    cadence-gated optimizer step. distill=None runs the exact frozen
+    episode."""
     scene: SceneProvider        # world + teachers (oracle feedback)
     det_cfg: DetectorConfig
-    det_params: dict            # detector params (frozen)
+    det_params: dict            # shared detector params (never written)
     thresh: torch.Tensor        # [P] per-pair score threshold
     geo_thresh: torch.Tensor    # [] score floor for zoom geometry
     noise: torch.Tensor         # [] render noise scale
     nbr8: torch.Tensor          # [N, N] 8-neighbor mask (shortlist ring)
     chunk: int                  # windows per render slab (CPU plain path)
     shortlist_k: int = 0        # windows scored per camera (0 = all)
+    distill: object = None      # repro_torch.learn.DistillSpec | None
 
     @property
     def n_steps(self) -> int:
         return self.scene.n_steps
+
+    @property
+    def learns(self) -> bool:
+        """True when the episode calls the `learn` hook."""
+        return self.distill is not None
 
     def _effective_k(self) -> int:
         c = self.scene.windows.shape[0]
@@ -168,14 +200,25 @@ class DetectorProvider:
         return k if 0 < k < c else c
 
     def init_carry(self, state: FleetState):
-        return (self.scene.state0, self.det_params)
+        """(scene state, shared params), plus a fresh LearnState with
+        distillation on: every call builds new per-camera tensors, so a
+        discarded warm-up step leaks nothing into the episode."""
+        if self.distill is None:
+            return (self.scene.state0, self.det_params)
+        lc = init_learn(self.distill, self.det_cfg, self.det_params,
+                        state.step_idx.shape[0], self._effective_k())
+        return (self.scene.state0, self.det_params, lc)
 
     def scan_xs(self):
         return self.scene.scan_xs()
 
     def observe(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
                 state: FleetState, xs):
-        sc, dp = carry
+        learn_on = self.distill is not None
+        if learn_on:
+            sc, dp, lc = carry
+        else:
+            sc, dp = carry
         mbps_t, rtt_t = xs
         p = self.scene
         dev = sc.pos.device
@@ -188,11 +231,16 @@ class DetectorProvider:
         sc, o = p.oracle(cfg, wl, sc, state)
         frame = state.step_idx * p.stride
         noise_img = render_noise(state.rng, frame, res) * self.noise
-        dets = self._score_fused(cfg, state, sc, dp, kinds, noise_img)
+        if learn_on:
+            dets, lc = self._score_learn(cfg, state, sc, dp, lc, kinds,
+                                         noise_img)
+        else:
+            dets = self._score_fused(cfg, state, sc, dp, kinds, noise_img)
         do = detections_obs(dets, p.windows, pair_cls, self.thresh,
                             self.geo_thresh, o.acc_true,
                             n_zoom=len(cfg.zoom_levels))
-        return (sc, dp), FleetObs(*do, mbps=mbps_t, rtt=rtt_t)
+        obs = FleetObs(*do, mbps=mbps_t, rtt=rtt_t)
+        return ((sc, dp, lc) if learn_on else (sc, dp)), obs
 
     def _shortlist_tokens(self, cfg, state, sc, dp, kinds, noise_img):
         """Shortlist -> fused crop->token kernel: (tokens [F, K, gg, D],
@@ -225,19 +273,92 @@ class DetectorProvider:
         dets = detector_forward_tokens(
             dp, self.det_cfg, tokens.reshape((f * k,) + tokens.shape[2:]))
         dets = type(dets)(*(x.reshape((f, k) + x.shape[1:]) for x in dets))
-        if widx is not None:
-            # un-shortlisted windows read as score-0 detections (empty
-            # under any positive threshold), so detections_obs and the
-            # step consume the same full [F, C] axis either way
-            rows = torch.arange(f, device=widx.device)[:, None]
+        return _scatter_dets(dets, widx, c)
 
-            def scatter(x):
-                full = x.new_zeros((f, c) + x.shape[2:])
-                full[rows, widx] = x
-                return full
+    def _score_learn(self, cfg, state, sc, dp, lc, kinds, noise_img):
+        """The fused fast path routed through the LEARNED per-camera
+        params, staging the student payload for the pair harvest.
 
-            dets = type(dets)(*(scatter(x) for x in dets))
+        Head-only mode: the shared frozen backbone+neck runs once over
+        the flattened [F*K] shortlist (the frozen path's compute),
+        per-camera head convs finish the forward, and the post-neck
+        features are staged — training re-runs no backbone compute.
+        Full-param mode: each camera's whole network scores its own
+        crops (vmap over the fleet) and the patch tokens are staged.
+        -> (detections on the full [F, C] window axis, LearnState)."""
+        tokens, widx = self._shortlist_tokens(cfg, state, sc, dp, kinds,
+                                              noise_img)
+        f, k = tokens.shape[:2]
+        c = self.scene.windows.shape[0]
+        cfg_d = self.det_cfg
+        if self.distill.head_only:
+            feats = detector_neck_feats_tokens(
+                dp, cfg_d, tokens.reshape((f * k,) + tokens.shape[2:]))
+            payload = feats.reshape((f, k) + feats.shape[1:])
+            dets = vmap(lambda heads, x: detections_from_feats(
+                cfg_d, heads, x))(lc.params, payload)
+        else:
+            payload = tokens
+            dets = vmap(lambda par, x: detector_forward_tokens(
+                par, cfg_d, x))(lc.params, tokens)
+        dets_full = _scatter_dets(dets, widx, c)
+        if widx is None:
+            widx = torch.arange(c, device=tokens.device).expand(f, c)
+        return dets_full, lc._replace(staged=payload, staged_widx=widx)
+
+    def learn(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
+              state: FleetState, out: FleetStepOut, e: int):
+        """Post-step learning hook of step e: harvest teacher pairs from
+        the crops the budget SENT, then take the cadence-gated optimizer
+        step. `state` is the post-step controller state (step_idx already
+        incremented: the observation frame is (step_idx - 1) * stride,
+        and step_idx == e + 1, which gates the cadence on the host);
+        `out` this step's FleetStepOut. Returns (carry', aux) with aux
+        {"loss": [F] (-1.0 for skipped/idle cameras), "lr": [F]}. Every
+        stage is row-wise per camera."""
+        sc, dp, lc = carry
+        p = self.scene
+        sel_widx, sel_ok = select_sent_windows(
+            out, len(cfg.zoom_levels), self.distill.harvest)
+        boxes, classes, bvalid = teacher_window_targets(
+            p.spec, p.teach, p.params, sc,
+            (state.step_idx - 1) * p.stride, p.windows[sel_widx],
+            self.det_cfg.max_boxes, state.rng[:, 0])
+        lc = lc._replace(buf=harvest_into_buffer(
+            lc.buf, lc.staged, lc.staged_widx, sel_widx, sel_ok,
+            boxes, classes, bvalid))
+        lc, aux = distill_step(self.distill, self.det_cfg, lc, e + 1)
+        return (sc, dp, lc), aux
+
+    def learned_params(self, carry, camera=None):
+        """Full detector params from a learning episode's final carry:
+        the per-camera trained subtree merged with the shared frozen
+        rest. camera=None keeps the fleet axis on the trained leaves; an
+        int selects one camera's checkpoint (ready for
+        `save_detector_params`)."""
+        if self.distill is None:
+            raise ValueError("learned_params needs a distill-enabled "
+                             "provider (distill=None runs frozen)")
+        _, dp, lc = carry
+        return merged_params(self.distill, dp, lc.params, camera)
+
+
+def _scatter_dets(dets, widx, c: int):
+    """Shortlisted detections [F, K, ...] onto the full [F, C] window
+    axis: un-shortlisted windows read as score-0 detections (empty under
+    any positive threshold), so detections_obs and the step consume the
+    same axis either way. widx None: K already covers every window."""
+    if widx is None:
         return dets
+    f = widx.shape[0]
+    rows = torch.arange(f, device=widx.device)[:, None]
+
+    def scatter(x):
+        full = x.new_zeros((f, c) + x.shape[2:])
+        full[rows, widx] = x
+        return full
+
+    return type(dets)(*(scatter(x) for x in dets))
 
 
 # ---------------------------------------------------------------------------
@@ -378,8 +499,6 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
     if not fused:
         raise NotImplementedError(
             "only the fused fast path is ported (fused=False is not)")
-    if distill not in (None, False):
-        raise NotImplementedError("in-episode distillation is not ported")
     if det_cfg is None:
         det_cfg = get_smoke_config("madeye-approx")
     trained = det_params is not None
@@ -420,6 +539,12 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
             "un-shortlisted windows are scattered as score-0 "
             f"detections (got thresh={thresh!r}, "
             f"geo_thresh={geo_thresh!r})")
+    distill = normalize_distill(distill)
+    if distill is not None and distill.harvest > grid.n_cells:
+        raise ValueError(
+            f"distill.harvest={distill.harvest} exceeds the "
+            f"{grid.n_cells} grid cells — no step can send that many "
+            f"distinct orientations")
     provider = DetectorProvider(
         scene=scene, det_cfg=det_cfg, det_params=det_params,
         thresh=torch.as_tensor(np.broadcast_to(
@@ -429,7 +554,7 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
                                 device=device),
         noise=torch.tensor(noise, dtype=torch.float32, device=device),
         nbr8=fleet_statics(grid, device).neighbor8,
-        chunk=chunk, shortlist_k=shortlist_k)
+        chunk=chunk, shortlist_k=shortlist_k, distill=distill)
     return provider, state
 
 
@@ -438,26 +563,54 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
 # ---------------------------------------------------------------------------
 
 def episode_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
-                 state: FleetState, provider, carry, e: int):
-    """One controller step e: provider.observe, then fleet_step.
-    -> (state, carry, FleetStepOut)."""
+                 state: FleetState, provider, carry, e: int, *,
+                 metrics=None):
+    """One controller step e: provider.observe, fleet_step, then (for a
+    learning provider) provider.learn, and with `metrics` (a
+    MetricsSpec) step_metrics. -> (state, carry, FleetStepOut, extras):
+    extras holds "metrics" (the FleetMetrics dict, with distill_loss /
+    distill_lr joining it on learning runs) and "learn" (the learn aux)
+    where they apply, else it is empty."""
     xs = tuple(x[e] for x in provider.scan_xs())
     carry, obs = provider.observe(cfg, wl, carry, state, xs)
-    state, out = fleet_step(cfg, wl, statics, state, obs)
-    return state, carry, out
+    state2, out = fleet_step(cfg, wl, statics, state, obs)
+    ex = {}
+    if getattr(provider, "learns", False):
+        carry, laux = provider.learn(cfg, wl, carry, state2, out, e)
+        ex["learn"] = laux
+    if metrics is not None:
+        ex["metrics"] = step_metrics(metrics, cfg, provider, state, state2,
+                                     obs, out)
+        if "learn" in ex:
+            ex["metrics"]["distill_loss"] = ex["learn"]["loss"]
+            ex["metrics"]["distill_lr"] = ex["learn"]["lr"]
+    return state2, carry, out, ex
 
 
 def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
-                      statics: FleetStatics, state: FleetState, provider):
+                      statics: FleetStatics, state: FleetState, provider,
+                      *, metrics=None):
     """The episode: E controller steps carrying (state, provider carry).
-    Returns (final state, FleetStepOut with leaves stacked [E, F, ...]).
-    Prefer `repro_torch.fleet.api.run_fleet(spec)` unless composing
-    providers/state yourself."""
-    carry = provider.init_carry(state)
-    outs = []
-    for e in range(provider.n_steps):
-        state, carry, out = episode_step(cfg, wl, statics, state, provider,
-                                         carry, e)
-        outs.append(out)
-    return state, FleetStepOut(*(torch.stack(v) for v in zip(*outs)))
 
+    Returns (final state, FleetStepOut with leaves stacked [E, F, ...],
+    extras, final carry). extras holds "metrics" (the FleetMetrics dict,
+    leaves [E, F]) when `metrics` (a MetricsSpec) is on, and "learn"
+    (the learn aux, leaves [E, F]) for a LEARNING provider
+    (DetectorProvider with distill set), whose final carry holds the
+    learned params (provider.learned_params(final_carry)). Prefer
+    `repro_torch.fleet.api.run_fleet(spec)` unless composing
+    providers/state yourself."""
+    if metrics is not None and not metrics.enabled:
+        metrics = None
+    carry = provider.init_carry(state)
+    outs, exs = [], []
+    for e in range(provider.n_steps):
+        state, carry, out, ex = episode_step(cfg, wl, statics, state,
+                                             provider, carry, e,
+                                             metrics=metrics)
+        outs.append(out)
+        exs.append(ex)
+    out = FleetStepOut(*(torch.stack(v) for v in zip(*outs)))
+    ex = {name: {k: torch.stack([x[name][k] for x in exs])
+                 for k in exs[0][name]} for name in exs[0]} if exs else {}
+    return state, out, ex, carry

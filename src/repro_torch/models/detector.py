@@ -113,11 +113,134 @@ def _decode_detections(cfg: DetectorConfig, cls_logits, box_raw,
     return Detections(top_boxes, top_scores, top_probs)
 
 
+def detector_raw_tokens(params: Params, cfg: DetectorConfig,
+                        tokens: torch.Tensor):
+    """Patch tokens [B, P, D] -> raw head outputs (cls_logits [B, g, g,
+    K], box_raw [B, g, g, 4], obj [B, g, g])."""
+    bb = params["backbone"]
+    feats = vit.vit_features_tokens(bb["vit"], tokens, n_heads=cfg.n_heads)
+    return head_outputs(params["heads"], neck_features(bb, feats))
+
+
+def detector_neck_feats_tokens(params: Params, cfg: DetectorConfig,
+                               tokens: torch.Tensor) -> torch.Tensor:
+    """Patch tokens [B, P, D] -> post-neck feature map [B, g, g, F]: the
+    shared frozen half of the forward when the heads train per camera
+    (the same features are staged as the head-only training payload)."""
+    bb = params["backbone"]
+    feats = vit.vit_features_tokens(bb["vit"], tokens, n_heads=cfg.n_heads)
+    return neck_features(bb, feats)
+
+
+def detections_from_feats(cfg: DetectorConfig, heads: Params,
+                          feats: torch.Tensor) -> Detections:
+    """Post-neck features [B, g, g, F] + head params -> Detections."""
+    return _decode_detections(cfg, *head_outputs(heads, feats))
+
+
 def detector_forward_tokens(params: Params, cfg: DetectorConfig,
                             tokens: torch.Tensor) -> Detections:
     """Patch tokens [B, P, D] -> top-`max_boxes` Detections per crop —
     the single batched forward of the candidate-sparse fast path."""
-    bb = params["backbone"]
-    feats = vit.vit_features_tokens(bb["vit"], tokens, n_heads=cfg.n_heads)
-    return _decode_detections(
-        cfg, *head_outputs(params["heads"], neck_features(bb, feats)))
+    return _decode_detections(cfg,
+                              *detector_raw_tokens(params, cfg, tokens))
+
+
+# ---------------------------------------------------------------------------
+# training loss (distillation target = teacher boxes)
+# ---------------------------------------------------------------------------
+
+def detector_loss_from_outputs(cls_logits: torch.Tensor,
+                               box_raw: torch.Tensor,
+                               obj_logits: torch.Tensor,
+                               gt_boxes: torch.Tensor,
+                               gt_classes: torch.Tensor,
+                               gt_valid: torch.Tensor,
+                               weight: torch.Tensor | None = None):
+    """The anchor-free single-level loss on raw head outputs: focal-style
+    objectness BCE over every cell, class NLL and box L1 over the cells
+    a valid ground-truth center falls in. gt_boxes [B, N, 4] cxcywh,
+    gt_classes [B, N] int, gt_valid [B, N] bool; `weight` [B] weighs
+    samples (empty ring slots 0), None is the unweighted mean.
+
+    Dense targets as the reference's scatter builds them: objectness is
+    the max over the slots of a cell; class and box come from the LAST
+    slot (in slot order) that lands in a cell, where an invalid slot
+    lands in cell 0 and writes the zero target there. That order is
+    taken explicitly (the largest slot index per cell), so the result
+    does not depend on the order a device applies repeated writes in.
+    """
+    b, g = cls_logits.shape[0], cls_logits.shape[1]
+    k = cls_logits.shape[-1]
+    n = gt_boxes.shape[1]
+    dev = cls_logits.device
+
+    # assign each GT to the cell holding its center
+    ci = torch.clamp((gt_boxes[..., 0] * g).to(torch.int32), 0, g - 1)
+    cj = torch.clamp((gt_boxes[..., 1] * g).to(torch.int32), 0, g - 1)
+    cell = torch.where(gt_valid, cj * g + ci, 0).long()        # [B, N]
+
+    hit = cell[..., None] == torch.arange(g * g, device=dev)   # [B, N, C]
+    v = gt_valid.float()
+    obj_t = torch.where(hit, v[..., None], 0.0).amax(1)       # [B, C]
+    slot = torch.arange(1, n + 1, device=dev)[None, :, None]
+    last = torch.where(hit, slot, 0).amax(1)                  # [B, C]
+    src = torch.clamp(last - 1, min=0)
+    cls_src = torch.where(gt_valid, gt_classes.long(), 0)
+    box_src = torch.where(gt_valid[..., None], gt_boxes.float(), 0.0)
+    cls_t = torch.where(last > 0, torch.gather(cls_src, 1, src), 0)
+    box_t = torch.where((last > 0)[..., None], torch.gather(
+        box_src, 1, src[..., None].expand(-1, -1, 4)), 0.0)
+
+    obj_logits = obj_logits.reshape(b, g * g).float()
+    cls_logits = cls_logits.reshape(b, g * g, k).float()
+    pred_boxes = decode_boxes(box_raw).reshape(b, g * g, 4)
+
+    # focal-style objectness BCE
+    p = torch.sigmoid(obj_logits)
+    bce = -(obj_t * torch.log(p + 1e-8)
+            + (1 - obj_t) * torch.log(1 - p + 1e-8))
+    focal_w = torch.where(obj_t > 0, (1 - p) ** 2, p ** 2)
+    pos = obj_t
+    logp = torch.log_softmax(cls_logits, dim=-1)
+    cls_nll = -torch.gather(logp, -1, cls_t[..., None])[..., 0]
+    box_l1 = torch.abs(pred_boxes - box_t)
+
+    if weight is None:
+        obj_loss = torch.mean(focal_w * bce)
+        n_pos = torch.clamp(torch.sum(pos), min=1.0)
+        cls_loss = torch.sum(pos * cls_nll) / n_pos
+        box_loss = torch.sum(pos[..., None] * box_l1) / n_pos
+    else:
+        w = weight.float()[:, None]                             # [B, 1]
+        obj_loss = (torch.sum(w * focal_w * bce)
+                    / torch.clamp(torch.sum(w) * (g * g), min=1.0))
+        wpos = w * pos
+        n_pos = torch.clamp(torch.sum(wpos), min=1.0)
+        cls_loss = torch.sum(wpos * cls_nll) / n_pos
+        box_loss = torch.sum(wpos[..., None] * box_l1) / n_pos
+
+    return obj_loss + cls_loss + box_loss
+
+
+def detector_loss_tokens(params: Params, cfg: DetectorConfig,
+                         tokens: torch.Tensor, gt_boxes: torch.Tensor,
+                         gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                         *, weight: torch.Tensor | None = None):
+    """The detector loss from patch-embedding tokens [B, P, D] — the
+    full-param distillation objective (the staged payload is the
+    crop_patchify token buffer, re-run through the trainable
+    backbone)."""
+    return detector_loss_from_outputs(
+        *detector_raw_tokens(params, cfg, tokens),
+        gt_boxes, gt_classes, gt_valid, weight=weight)
+
+
+def head_params_mask(params: Params) -> Params:
+    """Mask tree: True for fine-tuned (head) leaves, False elsewhere."""
+    def const(tree, value):
+        if isinstance(tree, dict):
+            return {k: const(v, value) for k, v in tree.items()}
+        return value
+
+    return {k: const(v, k == "heads") for k, v in params.items()}

@@ -90,10 +90,18 @@ def test_result_json_round_trip():
 
 
 def test_unported_options_raise():
-    for spec in (TSpec(metrics=True), TSpec(distill={"enabled": True}),
-                 TSpec(shard={"kind": "debug"}), TSpec(provider="tables")):
+    """Sharding and the tables provider are not ported; metrics and
+    distillation are (tests/test_torch_learn.py), and distillation on a
+    provider without a per-window model is refused as in the reference."""
+    for spec in (TSpec(shard={"kind": "debug"}), TSpec(provider="tables")):
         with pytest.raises((NotImplementedError, KeyError)):
             t_run_fleet(spec, device="cpu")
+    with pytest.raises(TypeError):
+        t_run_fleet(TSpec(n_cameras=1, n_steps=1,
+                          distill={"enabled": True}), device="cpu")
+    res = t_run_fleet(TSpec(n_cameras=1, n_steps=2, metrics=True),
+                      device="cpu")
+    assert res.metrics["chosen_rank"].shape == (2, 1)
 
 
 def test_run_fleet_never_falls_back_to_cpu():
@@ -112,6 +120,9 @@ def test_port_imports_no_jax():
                                   .with_suffix("").parts)
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
+    assert {"repro_torch.learn.loop", "repro_torch.learn.pairs",
+            "repro_torch.learn.loss", "repro_torch.learn.spec",
+            "repro_torch.train.optim", "repro_torch.obs.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -139,3 +150,19 @@ def test_port_sources_do_not_import_jax():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_port_uses_no_torch_optim():
+    """The learner's optimizers are written out (train/optim.py), as the
+    reference's are: no module of the port reaches torch.optim."""
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr == "optim":
+                assert not (isinstance(node.value, ast.Name)
+                            and node.value.id == "torch"), path
+            if isinstance(node, ast.ImportFrom):
+                assert not (node.module or "").startswith("torch.optim"), path
+            if isinstance(node, ast.Import):
+                assert not any(a.name.startswith("torch.optim")
+                               for a in node.names), path
