@@ -66,21 +66,43 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      once per step, each call equal to its plain version); the same
      spec at 2 cameras on the card and on the CPU must decide alike;
      oracle_pass on a 256-slot scene;
+  8b. drive the serving launcher (`repro_torch.launch.serve.serve`, the
+     `python -m repro_torch.launch.serve` entry point) inside a trace
+     (with NVTX ranges):
+     at its defaults (5 fps, 20 s: 100 controller steps) with a
+     64-camera `tables` fleet and JSONL telemetry, counters set to 0
+     just before and read just after (shape_search and budget_walk once
+     per step, 101 with the warm-up, and no other kernel; every call
+     equal to its plain version); the spans fleet/build, fleet/compile
+     and fleet/steady in the trace and every event valid; the same
+     fleet through run_fleet(FleetRunSpec.from_objects("tables", ...))
+     on the 200-cell grid (the kernels' four-word instances); serve
+     --fleet 4 on the card and on the CPU (equal printed accuracies and
+     decisions); and serve --fleet 8 --provider detector --shortlist-k
+     18 --distill --telemetry over 5 steps (the four main-path kernels
+     once per step and no other, each call equal to its plain version,
+     events carrying distill_loss);
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
      and count the operations of one learn hook that wait for the
      card (sync debug mode);
- 10. print one JSON line describing every kernel, the card line again,
-     and as the last line {"ok": true, "device": {...}}.
+ 10. print one JSON line describing every kernel (its launches on the
+     detector main path; with `serve_launches` its launches on each
+     path of phase 8b, and for the search kernels `tables_graph_ms`),
+     the card line again, and as the last line {"ok": true, "device":
+     {...}}.
 
 Imports torch and the port (src/repro_torch) only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +117,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
+from repro_torch.core.tradeoff import BudgetConfig  # noqa: E402
+from repro_torch.data import SceneConfig, build_video  # noqa: E402
 from repro_torch.fleet.api import (  # noqa: E402
     FleetRunSpec,
     prepare_fleet_run,
@@ -158,6 +182,7 @@ from repro_torch.learn.pairs import (  # noqa: E402
     select_sent_windows,
     teacher_window_targets,
 )
+from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.learn.spec import DistillSpec  # noqa: E402
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
@@ -170,6 +195,8 @@ from repro_torch.obs.metrics import (  # noqa: E402
     median_valid_rank,
 )
 from repro_torch.models.vit import vit_features_tokens  # noqa: E402
+from repro_torch.obs.events import read_events  # noqa: E402
+from repro_torch.obs.trace import tracing  # noqa: E402
 from repro_torch.scene import observe as observe_module  # noqa: E402
 from repro_torch.scene.observe import (  # noqa: E402
     detections_obs,
@@ -188,6 +215,11 @@ from repro_torch.scene.scene import (  # noqa: E402
     init_scene,
     kind_mask,
     scene_fleet_params,
+)
+from repro_torch.serving import (  # noqa: E402
+    NetworkTrace,
+    detection_tables,
+    workload_acc_table,
 )
 from repro_torch.train.optim import tree_leaves  # noqa: E402
 
@@ -220,6 +252,13 @@ BIG_CAMERAS, BIG_STEPS = 16, 3
 # flash attention past 128 head dims (the MLA configs' 192-wide query /
 # key heads, src/repro/configs/deepseek_v3_671b.py, and 256)
 WIDE_ATTN = dict(b=2, s=1024, h=8)
+# the serving launcher at its defaults (5 fps, 20 s of 15 fps video: 100
+# controller steps); its detector branch over 5 steps (1 s)
+SERVE = dict(fps=5.0, duration=20.0)
+SERVE_STEPS = 100
+SERVE_DETECTOR = dict(fps=5.0, duration=1.0, fleet=8, provider="detector",
+                      shortlist_k=SHORTLIST_K, distill=True)
+SEARCH_KERNELS = ("shape_search", "budget_walk")
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -808,6 +847,15 @@ def _clone(x):
     return x
 
 
+def _launched_only(counts, kernels, n, label) -> None:
+    """Raise unless exactly `kernels` launched, each `n` times."""
+    uneven = [k for k in kernels if counts[k] != n]
+    stray = [k for k, v in counts.items() if v and k not in kernels]
+    if uneven or stray:
+        raise AssertionError(f"{label}: launches {counts}, want "
+                             f"{kernels} x {n} only")
+
+
 def main_path_phase(spec: FleetRunSpec):
     """Drive run_fleet once at the main path's cell; return (result,
     launch counts of that run, the recorded shape-search calls, the
@@ -1081,12 +1129,8 @@ def beyond_limits_phase(dev) -> None:
         result = run_fleet(spec)
     torch.cuda.synchronize()
     counts = _lib.launch_counts()
-    uneven = [k for k in MAIN_PATH_KERNELS if counts[k] != steps]
-    stray = [k for k, v in counts.items()
-             if v and k not in MAIN_PATH_KERNELS]
-    if uneven or stray:
-        raise AssertionError(f"beyond the old limits: launches {counts}, "
-                             f"want {MAIN_PATH_KERNELS} x {steps} only")
+    _launched_only(counts, MAIN_PATH_KERNELS, steps,
+                   "beyond the old limits")
     chosen = torch.tensor(result.chosen)
     acc = torch.tensor(result.acc_per_step)
     if (chosen.shape != (BIG_STEPS, BIG_CAMERAS)
@@ -1139,6 +1183,191 @@ def beyond_limits_phase(dev) -> None:
     oracle_phase([(oargs, okw, got)], 1, "[25 cells, M=256]")
 
 
+class FleetRecorder:
+    """While active, keeps the FleetResult of every run_fleet call the
+    serving launcher makes (by wrapping the name launch/serve.py calls)."""
+
+    def __init__(self):
+        self.results = []
+
+    def __enter__(self):
+        self.saved = serve_module.run_fleet
+
+        def recorded(*args, **kwargs):
+            result = self.saved(*args, **kwargs)
+            self.results.append(result)
+            return result
+
+        serve_module.run_fleet = recorded
+        return self
+
+    def __exit__(self, *exc):
+        serve_module.run_fleet = self.saved
+
+
+ACC_LINE = re.compile(r"^(.+?)\s*:\s*acc=([0-9.]+)", re.M)
+
+
+def _serve(**kwargs):
+    """serve(**kwargs) with its printout captured -> (the printout, the
+    {line label: accuracy} it printed, the FleetResults it made)."""
+    buf = io.StringIO()
+    with FleetRecorder() as frec, contextlib.redirect_stdout(buf):
+        serve_module.serve(**kwargs)
+    out = buf.getvalue()
+    accs = {k.strip(): v for k, v in ACC_LINE.findall(out)}
+    return out, accs, frec.results
+
+
+def _check_tables_result(result, n_cells, label) -> None:
+    chosen = torch.tensor(result.chosen)
+    acc = torch.tensor(result.acc_per_step)
+    if (chosen.shape != (SERVE_STEPS, N_CAMERAS)
+            or not bool(((chosen >= 0) & (chosen < n_cells)).all())
+            or not bool(torch.isfinite(acc).all())
+            or not bool(((acc >= 0) & (acc <= 1)).all())):
+        raise AssertionError(f"{label}: malformed result {result.chosen} "
+                             f"{result.acc_per_step}")
+    # one shared world: every camera decides alike
+    for k in ("explored", "order", "zooms", "sent", "chosen"):
+        x = getattr(result.out, k)
+        if not torch.equal(x, x[:, :1].expand_as(x)):
+            raise AssertionError(f"{label}: cameras of the shared world "
+                                 f"disagree on {k}")
+
+
+def serve_phase(dev) -> dict:
+    """The serving launcher on the card (phase 8b); returns the search
+    kernels' rows of its two tables episodes and every path's launches."""
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    events_path = out_dir / "serve_events.jsonl"
+    trace_path = out_dir / "serve_trace.json"
+    events_path.unlink(missing_ok=True)
+    steps = SERVE_STEPS + 1
+    paths, rows = {}, {}
+
+    # serve --fleet 64 at its defaults, telemetry to a file, in a trace
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with (tracing(str(trace_path), nvtx=True) as tracer,
+          SearchRecorder() as rec):
+        out, _, (result,) = _serve(**SERVE, fleet=N_CAMERAS,
+                                   provider="tables",
+                                   telemetry=str(events_path))
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    print(out.rstrip(), flush=True)
+    label = f"serve --fleet {N_CAMERAS} [tables, 25 cells]"
+    _launched_only(counts, SEARCH_KERNELS, steps, label)
+    paths[label] = counts
+    _check_tables_result(result, DEFAULT_GRID.n_cells, label)
+    events = read_events(str(events_path))
+    kinds = [e["event"] for e in events]
+    n_chunks = math.ceil(SERVE_STEPS / 16)
+    if kinds != ["run_start"] + ["steps"] * n_chunks + ["run_end"]:
+        raise AssertionError(f"{label}: events {kinds}")
+    spans = [(e["name"], e["dur"] / 1e3) for e in tracer.events]
+    missing = {"fleet/build", "fleet/compile", "fleet/steady"} - {
+        n for n, _ in spans}
+    if missing:
+        raise AssertionError(f"{label}: spans missing from the trace: "
+                             f"{sorted(missing)}")
+    t = result.timings
+    print(f"{label}: accuracy={result.accuracy:.6f} "
+          f"build_s={t['build_s']:.3f} compile_s={t['compile_s']:.3f} "
+          f"steady_s={t['steady_s']:.3f} "
+          f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
+          f"events={len(events)} (all valid) spans_ms="
+          + json.dumps({n: round(d, 3) for n, d in spans})
+          + f" launches={counts} (over {SERVE_STEPS} steps + 1 warm-up "
+          f"step)", flush=True)
+    rows[label] = search_phase(rec.calls, steps, f"[{label}]")
+
+    # the same fleet on the 200-cell grid, through the spec API
+    grid = OrientationGrid(**BIG_GRID)
+    wl = serve_module.DEFAULT_WORKLOAD
+    t0 = time.perf_counter()
+    video = build_video(grid, SceneConfig(fps=15, seed=3), SERVE["duration"])
+    tables = detection_tables(video, wl)
+    acc = workload_acc_table(video, wl, tables)
+    host_s = time.perf_counter() - t0
+    spec = FleetRunSpec.from_objects(
+        "tables", n_cameras=N_CAMERAS, grid=grid, workload=wl,
+        budget=BudgetConfig(fps=SERVE["fps"]), video=video, tables=tables,
+        trace=NetworkTrace.fixed(24.0, 20.0, video.n_frames),
+        acc_table=acc)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with tracing() as tracer, SearchRecorder() as rec:
+        result = run_fleet(spec)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    label = f"run_fleet tables x{N_CAMERAS} [{grid.n_cells} cells]"
+    _launched_only(counts, SEARCH_KERNELS, steps, label)
+    paths[label] = counts
+    _check_tables_result(result, grid.n_cells, label)
+    t = result.timings
+    print(f"{label}: substrate (video, teacher tables, accuracy) built on "
+          f"the host in {host_s:.1f} s ({video.n_frames} frames x "
+          f"{grid.n_cells} cells); accuracy={result.accuracy:.6f} "
+          f"build_s={t['build_s']:.3f} (episode tables) "
+          f"compile_s={t['compile_s']:.3f} steady_s={t['steady_s']:.3f} "
+          f"camera_steps_per_s={result.camera_steps_per_s:.2f} spans_ms="
+          + json.dumps({e["name"]: round(e["dur"] / 1e3, 3)
+                        for e in tracer.events})
+          + f" launches={counts}", flush=True)
+    rows[label] = search_phase(rec.calls, steps, f"[{label}]")
+
+    # serve --fleet 4 on the card and on the CPU
+    small = dict(fps=2.0, duration=3.0, fleet=4)
+    _, card_accs, (on_card,) = _serve(**small)
+    _, cpu_accs, (on_cpu,) = _serve(**small, device="cpu")
+    same = card_accs == cpu_accs and len(card_accs) == 8 and all(
+        torch.equal(getattr(on_card.out, k).cpu(), getattr(on_cpu.out, k))
+        for k in ("chosen", "explored", "order", "zooms", "sent"))
+    if not same:
+        raise AssertionError(f"serve --fleet 4: card and CPU differ: "
+                             f"{card_accs} vs {cpu_accs}")
+    print(f"serve --fleet 4, small input: card and CPU print the same "
+          f"accuracies {card_accs} and decide alike (chosen "
+          f"{on_card.chosen})", flush=True)
+
+    # the detector branch: shortlist, distillation, telemetry
+    det_events = out_dir / "serve_detector_events.jsonl"
+    det_events.unlink(missing_ok=True)
+    det_steps = int(SERVE_DETECTOR["duration"] * SERVE_DETECTOR["fps"])
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with (SearchRecorder() as rec, OracleRecorder() as orec,
+          PatchifyRecorder() as prec):
+        out, _, (result,) = _serve(**SERVE_DETECTOR,
+                                   telemetry=str(det_events))
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    print(out.rstrip(), flush=True)
+    label = (f"serve --fleet {SERVE_DETECTOR['fleet']} [detector, "
+             f"shortlist {SHORTLIST_K}, distill]")
+    _launched_only(counts, MAIN_PATH_KERNELS, det_steps + 1, label)
+    paths[label] = counts
+    steps_ev = [e for e in read_events(str(det_events))
+                if e["event"] == "steps"]
+    if not steps_ev or any(
+            len(e["cameras"].get("distill_loss", ())) != result.n_cameras
+            for e in steps_ev):
+        raise AssertionError(f"{label}: events without distill_loss")
+    if result.distill_loss is None or "  distill: " not in out:
+        raise AssertionError(f"{label}: no distillation ran")
+    print(f"{label}: accuracy={result.accuracy:.6f} distill_loss="
+          f"{[round(v, 6) for v in result.distill_loss]} "
+          f"launches={counts} (over {det_steps} steps + 1 warm-up step)",
+          flush=True)
+    oracle_phase(orec.calls, det_steps + 1, f"[{label}]")
+    search_phase(rec.calls, det_steps + 1, f"[{label}]")
+    patchify_phase(prec.calls, det_steps + 1, f"[{label}]")
+    return {"rows": rows, "paths": paths}
+
+
 def _tree_equal(a, b) -> bool:
     return all(torch.equal(x, y)
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
@@ -1171,12 +1400,7 @@ def distill_phase(spec: FleetRunSpec, frozen_steady_s: float, dev,
     torch.cuda.synchronize()
     counts = _lib.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    uneven = [k for k in MAIN_PATH_KERNELS if counts[k] != steps]
-    stray = [k for k, v in counts.items()
-             if v and k not in MAIN_PATH_KERNELS]
-    if uneven or stray:
-        raise AssertionError(f"{label}: launches {counts}, want "
-                             f"{MAIN_PATH_KERNELS} x {steps} only")
+    _launched_only(counts, MAIN_PATH_KERNELS, steps, label)
     chosen = torch.tensor(result.chosen)
     acc = torch.tensor(result.acc_per_step)
     if (chosen.shape != (spec.n_steps, spec.n_cameras)
@@ -1580,18 +1804,32 @@ def main() -> int:
     for name in ("box_iou", "frame_delta", "rmsnorm"):
         counts[name] = api_counts[name]
     beyond_limits_phase(dev)
+    served = serve_phase(dev)
     stage_phase(spec, DistillSpec())
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
+        # launches: the detector main path's; the serving launcher's
+        # paths (each counted from 0) and the search kernels' device
+        # times on the tables episodes' last steps ride beside them
+        served_launches = {label: c[name]
+                           for label, c in served["paths"].items()
+                           if c[name]}
+        tables_graph_ms = {label: rr[name]["graph_ms"]
+                           for label, rr in served["rows"].items()
+                           if name in rr}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
-            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})})
+            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {}),
+            **({"serve_launches": served_launches}
+               if served_launches else {}),
+            **({"tables_graph_ms": tables_graph_ms}
+               if tables_graph_ms else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
-"""Orientation grid geometry (paper §2.2 / §5.1) — numpy, host side.
+"""Orientation grid geometry (paper §2.2 / §5.1).
 
 The default grid mirrors the paper: a 150°x75° scene carved into 30° pan x
-15° tilt steps -> 5x5 = 25 rotations, each with zoom in {1, 2, 3}. Field of
-view at zoom 1 is (2*pan_step, 2*tilt_step) so direct neighbors overlap by
-50%.
+15° tilt steps -> 5x5 = 25 rotations, each with zoom in {1, 2, 3}. The
+search shape (§3.3) lives on the 25 rotation cells; zoom is a per-cell
+controller (core/zoom.py).
+
+Field of view at zoom 1 is (2*pan_step, 2*tilt_step) so direct neighbors
+overlap by 50% — matching the paper's observation that neighboring
+orientations exhibit substantial content overlap (LPIPS 0.30).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ class OrientationGrid:
     def n_orientations(self) -> int:
         return self.n_cells * self.n_zoom
 
+    # ---- index <-> coordinates ------------------------------------------
+
     def cell_index(self, pi: int, ti: int) -> int:
         return ti * self.n_pan + pi
 
@@ -53,6 +59,8 @@ class OrientationGrid:
         return (self.fov_scale * self.pan_step / zoom,
                 self.fov_scale * self.tilt_step / zoom)
 
+    # ---- precomputed geometry (cached, numpy) ----------------------------
+
     @cached_property
     def centers(self) -> np.ndarray:
         """[n_cells, 2] (pan, tilt) centers in degrees."""
@@ -60,8 +68,13 @@ class OrientationGrid:
 
     @cached_property
     def angular_distance(self) -> np.ndarray:
-        """[n_cells, n_cells] max-axis (Chebyshev) rotation distance in
-        degrees: pan and tilt motors run concurrently."""
+        """[n_cells, n_cells] max-axis rotation distance in degrees.
+
+        PTZ pan and tilt motors run concurrently, so travel time is
+        governed by the larger of the two rotations (Chebyshev metric) —
+        this also satisfies the triangle inequality required by the
+        MST/TSP heuristic (paper §3.3).
+        """
         d = np.abs(self.centers[:, None, :] - self.centers[None, :, :])
         return d.max(-1)
 
@@ -75,7 +88,8 @@ class OrientationGrid:
     @cached_property
     def neighbor_mask(self) -> np.ndarray:
         """[n_cells, n_cells] bool — 8-connected lattice neighbors."""
-        return self.hop_distance == 1
+        h = self.hop_distance
+        return (h == 1)
 
     def overlap_fraction(self, i: int, j: int, zoom: float = 1.0) -> float:
         """Fractional FOV overlap between cells i and j at a given zoom."""
@@ -97,3 +111,31 @@ class OrientationGrid:
 
 
 DEFAULT_GRID = OrientationGrid()
+
+
+def contiguous(mask: np.ndarray, grid: OrientationGrid) -> bool:
+    """Is the set of cells in `mask` 8-connected? (numpy flood fill).
+
+    8-connectivity matches the Chebyshev hop metric: a diagonal move is a
+    single concurrent pan+tilt rotation, so diagonal cells are one hop
+    apart both physically and for shape contiguity."""
+    idx = np.flatnonzero(mask)
+    if idx.size <= 1:
+        return True
+    adj = grid.neighbor_mask
+    seen = np.zeros(grid.n_cells, bool)
+    stack = [int(idx[0])]
+    seen[idx[0]] = True
+    while stack:
+        i = stack.pop()
+        for j in np.flatnonzero(adj[i] & mask & ~seen):
+            seen[j] = True
+            stack.append(int(j))
+    return bool(seen[mask].all())
+
+
+def removal_keeps_contiguity(mask: np.ndarray, cell: int,
+                             grid: OrientationGrid) -> bool:
+    m = mask.copy()
+    m[cell] = False
+    return contiguous(m, grid)

@@ -1,5 +1,5 @@
-"""Synthetic mobile network capacity (numpy, host side): the per-camera
-link traces the fleet's budget planner observes."""
+"""Synthetic mobile network capacity (numpy, host side): the model behind
+`serving.NetworkTrace.mobile` and the fleet's per-camera link traces."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,13 +1,16 @@
 """Fleet experiment API: one declarative entry for every provider.
 
-  * the provider registry — string-keyed factories (`scene`, `detector`)
-    with one uniform signature;
+  * the provider registry — string-keyed factories (`tables`, `scene`,
+    `detector`) with one uniform signature, open through
+    `register_provider`;
   * `FleetRunSpec` — a JSON-round-trippable description of a fleet
     experiment, field for field the reference package's, so one spec
     JSON names the same run in both packages;
   * `run_fleet(spec, device=None) -> FleetResult` — build the provider,
     run one warm-up step (kernel build and load included, timed as
-    `compile_s`), then the episode (timed as `steady_s`).
+    `compile_s`), then the episode (timed as `steady_s`); with a tracer
+    active (repro_torch.obs.trace) the three phases are the spans
+    `fleet/build`, `fleet/compile` and `fleet/steady`.
 
     >>> spec = FleetRunSpec(provider="detector", n_cameras=4, n_steps=8)
     >>> result = run_fleet(spec)           # on the CUDA card
@@ -37,6 +40,8 @@ from repro_torch.fleet.runner import (
     episode_step,
     make_detector_provider,
     make_scene_provider,
+    make_tables_provider,
+    resolve_device,
     run_fleet_episode,
     save_detector_params,
 )
@@ -52,6 +57,7 @@ from repro_torch.fleet.state import (
 from repro_torch.fleet.step import FleetStepOut
 from repro_torch.learn.spec import DistillSpec, normalize_distill
 from repro_torch.obs.metrics import MetricsSpec, normalize_metrics
+from repro_torch.obs.trace import span
 
 # the serving launcher's default 4-query workload, as (model, object,
 # task) triples
@@ -87,6 +93,11 @@ def provider_factory(name: str) -> ProviderFactory:
     return _PROVIDERS[name]
 
 
+def available_providers() -> tuple[str, ...]:
+    return tuple(sorted(_PROVIDERS))
+
+
+register_provider("tables", make_tables_provider)
 register_provider("scene", make_scene_provider)
 register_provider("detector", make_detector_provider)
 
@@ -148,6 +159,31 @@ class FleetRunSpec:
     def workload_obj(self) -> Workload:
         return Workload(tuple(Query(*q) for q in self.workload))
 
+    @classmethod
+    def from_objects(cls, provider: str, *, n_cameras: int,
+                     n_steps: int | None = None, seed: int = 0,
+                     grid: OrientationGrid | None = None,
+                     workload: Workload | None = None,
+                     budget: BudgetConfig | None = None,
+                     shard: dict | None = None,
+                     shortlist_k: int | None = None,
+                     metrics: MetricsSpec | bool | None = None,
+                     distill: Any = None,
+                     **provider_kwargs) -> "FleetRunSpec":
+        """Build a spec from the in-memory config objects the rest of
+        the code passes around; in-memory provider kwargs (the tables
+        provider's prebuilt `video`/`tables`/`trace`/`acc_table`) ride
+        through `provider_kwargs` but do not survive `to_json`."""
+        return cls(
+            provider=provider, n_cameras=n_cameras, n_steps=n_steps,
+            seed=seed,
+            workload=DEFAULT_QUERIES if workload is None else tuple(
+                (q.model, q.obj, q.task) for q in workload.queries),
+            grid={} if grid is None else dataclasses.asdict(grid),
+            budget={} if budget is None else dataclasses.asdict(budget),
+            provider_kwargs=provider_kwargs, shard=shard,
+            shortlist_k=shortlist_k, metrics=metrics, distill=distill)
+
     # -- JSON round trip ------------------------------------------------
     def to_json(self, **dumps_kwargs) -> str:
         d = dataclasses.asdict(self)
@@ -161,17 +197,6 @@ class FleetRunSpec:
 # ---------------------------------------------------------------------------
 # the entry point
 # ---------------------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """`device` or the CUDA card; raises when no card is present and the
-    caller did not ask for the CPU (never falls back)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
-    return dev
-
 
 @dataclass
 class PreparedFleetRun:
@@ -215,9 +240,11 @@ def prepare_fleet_run(spec: FleetRunSpec, *, device=None
         # factories without a per-window model to train reject it
         kwargs["distill"] = spec.distill
     t0 = time.perf_counter()
-    provider, state = factory(
-        grid, workload, cfg, n_cameras=spec.n_cameras,
-        n_steps=spec.n_steps, seed=spec.seed, device=dev, **kwargs)
+    with span("fleet/build", provider=spec.provider,
+              n_cameras=spec.n_cameras):
+        provider, state = factory(
+            grid, workload, cfg, n_cameras=spec.n_cameras,
+            n_steps=spec.n_steps, seed=spec.seed, device=dev, **kwargs)
     build_s = time.perf_counter() - t0
     return PreparedFleetRun(
         spec=spec, cfg=cfg, wl=workload_spec(workload),
@@ -320,15 +347,19 @@ def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        episode_step(prep.cfg, prep.wl, prep.statics, prep.state,
-                     prep.provider, prep.provider.init_carry(prep.state), 0,
-                     metrics=mspec)
-        _sync(dev)
+        with span("fleet/compile", provider=spec.provider,
+                  metrics=mspec is not None):
+            episode_step(prep.cfg, prep.wl, prep.statics, prep.state,
+                         prep.provider, prep.provider.init_carry(prep.state),
+                         0, metrics=mspec)
+            _sync(dev)
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        res = prep.episode()
-        _sync(dev)
+        with span("fleet/steady", provider=spec.provider,
+                  n_cameras=spec.n_cameras):
+            res = prep.episode()
+            _sync(dev)
         steady_s = time.perf_counter() - t0
 
     state, out, ex, carry = res

@@ -4,8 +4,14 @@ observation-provider seam.
 The fleet episode (`run_fleet_episode`) is parameterized by a provider
 that owns a carry (`init_carry`), per-step inputs (`scan_xs`, leading
 [E]) and an `observe` hook turning (carry, controller state, inputs) into the
-`FleetObs` the controller step consumes. Two providers ship:
+`FleetObs` the controller step consumes. Three providers ship:
 
+  * `EpisodeTables` (`tables`) — the host-built path
+    (`build_episode_tables`: numpy loops over the procedural scene and
+    the teacher models, the observations serving/pipeline.run_madeye
+    feeds the numpy MadEyeController), moved to the device once; every
+    camera watches the one shared world. The substrate of the decision
+    parity with the numpy controller, and `serve --fleet`'s default.
   * `SceneProvider` (`scene`) — per-camera scenes advance and are
     observed by the oracle pass inside the step; scene randomness is
     driven by the per-camera keys in `FleetState.rng`.
@@ -24,6 +30,7 @@ that owns a carry (`init_carry`), per-step inputs (`scan_xs`, leading
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,7 +39,9 @@ from torch.func import vmap
 from repro_torch.configs import DetectorConfig, get_smoke_config
 from repro_torch.core import ewma
 from repro_torch.core.rank import Workload
+from repro_torch.core.tradeoff import BudgetConfig
 from repro_torch.core.transport import ar1_mobile_trace
+from repro_torch.data import SceneConfig, build_video
 from repro_torch.fleet.state import (
     FleetConfig,
     FleetState,
@@ -80,6 +89,48 @@ from repro_torch.scene.scene import (
     kind_mask,
     scene_fleet_params,
 )
+from repro_torch.serving.accuracy import detection_tables, workload_acc_table
+from repro_torch.serving.pipeline import (
+    ZOOM_LEVELS,
+    _observation_from_tables,
+)
+from repro_torch.serving.transport import NetworkTrace
+
+
+class EpisodeTables(NamedTuple):
+    """Host-built observation substrate on the run's device; every leaf
+    leads with [E] steps and has no fleet axis: the whole fleet watches
+    one world. mbps/rtt are [E] for a fleet-shared link or [E, F] per
+    camera."""
+    counts: torch.Tensor    # [E, N, Z, P]
+    areas: torch.Tensor     # [E, N, Z, P]
+    centroid: torch.Tensor  # [E, N, Z, 2]
+    spread: torch.Tensor    # [E, N, Z]
+    extent: torch.Tensor    # [E, N, Z]
+    nbox: torch.Tensor      # [E, N, Z]
+    acc_true: torch.Tensor  # [E, N, Z]
+    mbps: torch.Tensor      # [E] or [E, F]
+    rtt: torch.Tensor       # [E] or [E, F]
+
+    @property
+    def n_steps(self) -> int:
+        return self.counts.shape[0]
+
+    def init_carry(self, state: FleetState):
+        return ()
+
+    def scan_xs(self):
+        return self
+
+    def observe(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
+                state: FleetState, xs):
+        """Step e's shared tables as the [F, N, Z, ...] FleetObs the
+        step takes: `expand`ed views of the one [N, Z, ...] row, no
+        copy."""
+        f = state.step_idx.shape[0]
+        *tabs, mbps, rtt = xs
+        return carry, FleetObs(*(x.expand((f,) + x.shape) for x in tabs),
+                               mbps=mbps, rtt=rtt)
 
 
 @dataclass(frozen=True)
@@ -364,6 +415,118 @@ def _scatter_dets(dets, widx, c: int):
 # ---------------------------------------------------------------------------
 # provider construction (the registry factories — fleet.api)
 # ---------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """`device` or the CUDA card; raises when no card is present and the
+    caller did not ask for the CPU (never falls back)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def build_episode_tables(video, workload: Workload, tables: dict,
+                         budget: BudgetConfig, trace, *,
+                         approx_miss: float = 0.12,
+                         acc_table: np.ndarray | None = None,
+                         max_steps: int | None = None,
+                         device=None) -> EpisodeTables:
+    """Materialize what the observe callback + the backend return at
+    every (controller timestep, cell, zoom) — the exact observations
+    serving/pipeline.run_madeye feeds the numpy controller — in numpy on
+    the host, then move each leaf to `device` once."""
+    grid = video.grid
+    spec = workload_spec(workload)
+    n, z_n, p_n = grid.n_cells, len(ZOOM_LEVELS), len(spec.pairs)
+    if acc_table is None:
+        acc_table = workload_acc_table(video, workload, tables, ZOOM_LEVELS)
+    stride = max(1, int(round(video.fps / budget.fps)))
+    frames = list(range(0, video.n_frames, stride))
+    if max_steps is not None:
+        frames = frames[:max_steps]
+    e = len(frames)
+
+    counts = np.zeros((e, n, z_n, p_n), np.float32)
+    areas = np.zeros((e, n, z_n, p_n), np.float32)
+    centroid = np.zeros((e, n, z_n, 2), np.float32)
+    spread = np.zeros((e, n, z_n), np.float32)
+    extent = np.zeros((e, n, z_n), np.float32)
+    nbox = np.zeros((e, n, z_n), np.int32)
+    acc_true = np.zeros((e, n, z_n), np.float32)
+    mbps = np.zeros(e, np.float32)
+
+    for ei, t in enumerate(frames):
+        acc_true[ei] = acc_table[t]
+        mbps[ei] = trace.observed_mbps(t)
+        for c in range(n):
+            for zi in range(z_n):
+                o = _observation_from_tables(tables, workload, grid, t, c,
+                                             zi, approx_miss)
+                for pi, pair in enumerate(spec.pairs):
+                    counts[ei, c, zi, pi] = o.counts.get(pair, 0)
+                    areas[ei, c, zi, pi] = o.areas.get(pair, 0.0)
+                k = o.box_centers.shape[0]
+                nbox[ei, c, zi] = k
+                if k:
+                    centroid[ei, c, zi] = o.centroid
+                    spread[ei, c, zi] = float(np.linalg.norm(
+                        o.box_centers - o.centroid, axis=1).mean())
+                    extent[ei, c, zi] = float(o.box_sizes.max())
+
+    rtt = np.full(e, float(trace.rtt_s), np.float32)
+    return EpisodeTables(*(torch.as_tensor(x, device=device) for x in (
+        counts, areas, centroid, spread, extent, nbox, acc_true, mbps,
+        rtt)))
+
+
+def budget_from_config(cfg: FleetConfig) -> BudgetConfig:
+    """The host-side BudgetConfig a FleetConfig mirrors, so the host
+    tables and the step read identical constants (the inverse of
+    `fleet_config` for the budget fields)."""
+    return BudgetConfig(
+        fps=cfg.fps, rotation_speed=cfg.rotation_speed,
+        hop_degrees=cfg.hop_degrees, approx_infer_s=cfg.approx_infer_s,
+        backend_infer_s=cfg.backend_infer_s, frame_bytes=cfg.frame_bytes,
+        min_send=cfg.min_send, max_send=cfg.max_send,
+        pipelined=cfg.pipelined)
+
+
+def make_tables_provider(grid, workload: Workload, cfg: FleetConfig, *,
+                         n_cameras: int, n_steps: int | None = None,
+                         seed: int = 3, mbps: float = 24.0,
+                         rtt_ms: float = 20.0, approx_miss: float = 0.12,
+                         scene_fps: float = 15.0, video=None, tables=None,
+                         trace=None, acc_table=None, device=None
+                         ) -> tuple[EpisodeTables, FleetState]:
+    """Host-built provider: numpy scene + teacher oracles recorded into
+    EpisodeTables on `device` (every camera shares one world).
+
+    Builds the substrate from `seed` (procedural scene at `scene_fps`,
+    long enough for `n_steps` controller steps at cfg.fps, fixed
+    mbps/rtt link) — or reuses prebuilt `video`/`tables`/`trace`/
+    `acc_table` objects (the serving launcher does; those kwargs are
+    in-memory only, not JSON-serializable). Runs on the CUDA card unless
+    `device="cpu"`; raises without a card."""
+    dev = resolve_device(device)
+    budget = budget_from_config(cfg)
+    if video is None:
+        if n_steps is None:
+            raise ValueError("tables provider needs n_steps (or a "
+                             "prebuilt video=) to size the substrate")
+        stride = max(1, int(round(scene_fps / cfg.fps)))
+        video = build_video(grid, SceneConfig(fps=scene_fps, seed=seed),
+                            (n_steps * stride + 2) / scene_fps)
+    if tables is None:
+        tables = detection_tables(video, workload)
+    if trace is None:
+        trace = NetworkTrace.fixed(mbps, rtt_ms, video.n_frames)
+    ep = build_episode_tables(video, workload, tables, budget, trace,
+                              approx_miss=approx_miss, acc_table=acc_table,
+                              max_steps=n_steps, device=dev)
+    return ep, init_fleet(grid, n_cameras, device=dev)
+
 
 def fleet_network_traces(n_steps: int, n_cameras: int | None = None, *,
                          mbps=24.0, rtt_ms=20.0, seed: int | None = None,

@@ -42,9 +42,12 @@ INF = math.inf
 
 
 class FleetObs(NamedTuple):
-    """Per-timestep observation substrate: tables [F, N, Z, ...] (every
-    camera watches its own scene); mbps/rtt [] for a shared link or [F]
-    per camera. acc_true is always the oracle's grade."""
+    """Per-timestep observation substrate: tables [F, N, Z, ...], one row
+    per camera (the scene and detector providers), or `expand`ed views of
+    one shared [N, Z, ...] row when the fleet watches one world (the
+    tables provider: stride 0 on the fleet axis, no copy); mbps/rtt []
+    for a shared link or [F] per camera. acc_true is always the oracle's
+    grade."""
     counts: torch.Tensor    # [F, N, Z, P] approx-model count per pair
     areas: torch.Tensor     # [F, N, Z, P] summed box area per pair
     centroid: torch.Tensor  # [F, N, Z, 2] bbox centroid (scene degrees)
@@ -182,8 +185,8 @@ def _rank(wl: WorkloadSpec, counts_g, areas_g, visits, explored):
 
 
 def gather_at_zoom(x: torch.Tensor, zoom_idx: torch.Tensor) -> torch.Tensor:
-    """Per-camera table x [F, N, Z, ...] at each cell's chosen zoom
-    (zoom_idx [F, N]) -> [F, N, ...]."""
+    """Per-camera table x [F, N, Z, ...] (an expanded shared row too) at
+    each cell's chosen zoom (zoom_idx [F, N]) -> [F, N, ...]."""
     f, n = zoom_idx.shape
     dev = zoom_idx.device
     return x[torch.arange(f, device=dev)[:, None],

@@ -38,7 +38,7 @@ from repro_torch.scene.scene import (
     SceneSpec,
     SceneState,
 )
-from repro_torch.scene.teachers import TEACHERS
+from repro_torch.serving.teachers import TEACHERS
 
 
 class TeacherArrays(NamedTuple):

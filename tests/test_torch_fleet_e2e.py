@@ -90,10 +90,14 @@ def test_result_json_round_trip():
 
 
 def test_unported_options_raise():
-    """Sharding and the tables provider are not ported; metrics and
-    distillation are (tests/test_torch_learn.py), and distillation on a
-    provider without a per-window model is refused as in the reference."""
-    for spec in (TSpec(shard={"kind": "debug"}), TSpec(provider="tables")):
+    """Sharding and the unfused detector path (fused=False) are not
+    ported; metrics and distillation are (tests/test_torch_learn.py), the
+    tables provider too (tests/test_torch_tables.py), and distillation on
+    a provider without a per-window model is refused as in the
+    reference."""
+    for spec in (TSpec(shard={"kind": "debug"}),
+                 TSpec(provider="detector", n_cameras=1, n_steps=1,
+                       provider_kwargs={"fused": False})):
         with pytest.raises((NotImplementedError, KeyError)):
             t_run_fleet(spec, device="cpu")
     with pytest.raises(TypeError):
