@@ -82,6 +82,27 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      18 --distill --telemetry over 5 steps (the four main-path kernels
      once per step and no other, each call equal to its plain version,
      events carrying distill_loss);
+  8c. drive this slice's paths (PR 19): the unfused detector reference
+     (run_fleet with provider_kwargs fused=False at the main path's
+     cell, exhaustive: 75 windows, 15 a slab) and the fused path at
+     shortlist_k=75, counters set to 0 just before and read just after
+     each (the unfused run launches oracle_pass, shape_search and
+     budget_walk once per step and crop_patchify never; the fused run all
+     four), every recorded call equal to its plain version; then the
+     anchor (weights drawn by numpy from a seed, the same under any
+     PyTorch): windows with a detection within 1e-4 of a score
+     threshold may be at most 0.1% of the windows; the two runs'
+     per-window tables agree but on windows with a detection within
+     1e-4 of a decision boundary (a threshold, the top-k cut, a class
+     tie), which may be at most 0.1% of the windows too; each camera
+     decides alike up to its first step holding a differing window; the unfused step split into render and detector forward;
+     materialize_scene_tables on a homogeneous 64-camera fleet (the
+     tables episode decides as the scene episode); the serving engine
+     (run_fleet_detector_controller decides as run_fleet;
+     InferenceEngine.counts_and_areas card vs CPU on 64 full-width
+     images); three host finetune_step calls card vs CPU (loss within
+     1e-4 relative, backbone bit-unchanged); and the three
+     `python -m repro_torch.examples.*` as subprocesses on the card;
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -89,7 +110,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      card (sync debug mode);
  10. print one JSON line describing every kernel (its launches on the
      detector main path; with `serve_launches` its launches on each
-     path of phase 8b, and for the search kernels `tables_graph_ms`),
+     path of phase 8b, for the search kernels `tables_graph_ms`,
+     and with `slice_launches` its launches on each path of phase 8c),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
@@ -102,6 +124,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -110,6 +133,7 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -129,7 +153,13 @@ from repro_torch.fleet.state import (  # noqa: E402
     fleet_statics,
     workload_spec,
 )
+from repro_torch.fleet import runner as runner_module  # noqa: E402
 from repro_torch.fleet import step as step_module  # noqa: E402
+from repro_torch.fleet.runner import (  # noqa: E402
+    make_scene_provider,
+    materialize_scene_tables,
+    run_fleet_episode,
+)
 from repro_torch.fleet.step import FleetObs, fleet_step  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
@@ -184,9 +214,13 @@ from repro_torch.learn.pairs import (  # noqa: E402
 )
 from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.learn.spec import DistillSpec  # noqa: E402
+from repro_torch.core import continual  # noqa: E402
+from repro_torch.core.distill import teacher_labels  # noqa: E402
+from repro_torch.models import detector as detector_module  # noqa: E402
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
     detector_init,
+    detector_raw,
     head_outputs,
     neck_features,
 )
@@ -207,6 +241,7 @@ from repro_torch.scene.observe import (  # noqa: E402
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
     render_background,
+    render_fleet_crops,
     render_noise,
 )
 from repro_torch.scene.scene import (  # noqa: E402
@@ -220,6 +255,10 @@ from repro_torch.serving import (  # noqa: E402
     NetworkTrace,
     detection_tables,
     workload_acc_table,
+)
+from repro_torch.serving.engine import (  # noqa: E402
+    InferenceEngine,
+    run_fleet_detector_controller,
 )
 from repro_torch.train.optim import tree_leaves  # noqa: E402
 
@@ -259,6 +298,35 @@ SERVE_STEPS = 100
 SERVE_DETECTOR = dict(fps=5.0, duration=1.0, fleet=8, provider="detector",
                       shortlist_k=SHORTLIST_K, distill=True)
 SEARCH_KERNELS = ("shape_search", "budget_walk")
+# the unfused detector path launches the main path's kernels but
+# crop_patchify (it renders pixels and embeds them with a matmul)
+UNFUSED_KERNELS = ("shape_search", "budget_walk", "oracle_pass")
+# a detection within this of a decision boundary (a score threshold, the
+# top-k cut, a class tie) may fall on either side under float32
+# round-off in another order
+NEAR_BAND = 1e-4
+# windows with a detection within NEAR_BAND of a score threshold, and
+# windows that differ between two formulations of the detector (each
+# must hold a detection near a boundary), each at most this share of all
+NEAR_SHARE = 1e-3
+# the anchor's weights: drawn by numpy (np.random.default_rng), so the
+# card runs the same net under any PyTorch as the CPU does, at the
+# threshold of fresh weights
+ANCHOR_SEED, FRESH_THRESH = 0, 0.3
+ENGINE_CAMERAS, ENGINE_STEPS = 8, 3
+FINETUNE_STEPS = 3
+# the port's examples as `python -m repro_torch.examples.<name>`, with the
+# small REPRO_EX_* overrides of the CPU smoke test, and their result lines
+EXAMPLES = (
+    ("fleet_experiment", {"REPRO_EX_CAMERAS": "8", "REPRO_EX_STEPS": "3"},
+     "fleet accuracy"),
+    ("adaptive_serving", {"REPRO_EX_DURATION": "2.0",
+                          "REPRO_EX_STEPS": "3"},
+     "NN-in-the-loop MadEye accuracy"),
+    ("continual_distillation", {"REPRO_EX_DURATION": "2.0",
+                                "REPRO_EX_EVALS": "4"},
+     "replay: rank quality"),
+)
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -788,52 +856,46 @@ class SearchRecorder:
             setattr(step_module, name, fn)
 
 
-class OracleRecorder:
+class CallRecorder:
+    """While active, keeps keep(args, kwargs, out) of every call of
+    `module.name` (by wrapping the name its callers look up); the wrapped
+    function runs once per call as always."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def recorded(*args, **kwargs):
+            out = self.saved(*args, **kwargs)
+            self.calls.append(self.keep(args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def _keep_call(args, kwargs, out):
+    return _clone(args), _clone(kwargs), _clone(out)
+
+
+def OracleRecorder():
     """While active, records the arguments and results of every
     oracle_pass call that observe_all_cells makes (clones, by wrapping
-    the name scene/observe.py calls). The wrapped call is the wrapper
-    itself, launched once as always."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __enter__(self):
-        self.saved = observe_module.oracle_pass
-
-        def recorded(*args, **kwargs):
-            out = self.saved(*args, **kwargs)
-            self.calls.append((_clone(args), _clone(kwargs), _clone(out)))
-            return out
-
-        observe_module.oracle_pass = recorded
-        return self
-
-    def __exit__(self, *exc):
-        observe_module.oracle_pass = self.saved
+    the name scene/observe.py calls)."""
+    return CallRecorder(observe_module, "oracle_pass", _keep_call)
 
 
-class PatchifyRecorder:
+def PatchifyRecorder():
     """While active, records the arguments and result of every
     crop_patchify kernel call (clones, by wrapping crop_patchify_batch,
-    the name kernels/crop_patchify/ops.crop_patchify calls). The wrapped
-    call is the wrapper itself, launched once as always."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __enter__(self):
-        self.saved = patchify_module.crop_patchify_batch
-
-        def recorded(*args, **kwargs):
-            out = self.saved(*args, **kwargs)
-            self.calls.append((_clone(args), _clone(kwargs), out.clone()))
-            return out
-
-        patchify_module.crop_patchify_batch = recorded
-        return self
-
-    def __exit__(self, *exc):
-        patchify_module.crop_patchify_batch = self.saved
+    the name kernels/crop_patchify/ops.crop_patchify calls)."""
+    return CallRecorder(patchify_module, "crop_patchify_batch", _keep_call)
 
 
 def _clone(x):
@@ -1183,26 +1245,11 @@ def beyond_limits_phase(dev) -> None:
     oracle_phase([(oargs, okw, got)], 1, "[25 cells, M=256]")
 
 
-class FleetRecorder:
+def FleetRecorder():
     """While active, keeps the FleetResult of every run_fleet call the
-    serving launcher makes (by wrapping the name launch/serve.py calls)."""
-
-    def __init__(self):
-        self.results = []
-
-    def __enter__(self):
-        self.saved = serve_module.run_fleet
-
-        def recorded(*args, **kwargs):
-            result = self.saved(*args, **kwargs)
-            self.results.append(result)
-            return result
-
-        serve_module.run_fleet = recorded
-        return self
-
-    def __exit__(self, *exc):
-        serve_module.run_fleet = self.saved
+    serving launcher makes (by wrapping the name launch/serve.py
+    calls)."""
+    return CallRecorder(serve_module, "run_fleet", lambda a, kw, out: out)
 
 
 ACC_LINE = re.compile(r"^(.+?)\s*:\s*acc=([0-9.]+)", re.M)
@@ -1216,7 +1263,7 @@ def _serve(**kwargs):
         serve_module.serve(**kwargs)
     out = buf.getvalue()
     accs = {k.strip(): v for k, v in ACC_LINE.findall(out)}
-    return out, accs, frec.results
+    return out, accs, frec.calls
 
 
 def _check_tables_result(result, n_cells, label) -> None:
@@ -1505,6 +1552,457 @@ def distill_parity_phase() -> None:
           f"{median_valid_rank(on_card.metrics['chosen_rank'])} learning, "
           f"{median_valid_rank(frozen.metrics['chosen_rank'])} frozen",
           flush=True)
+
+
+def raw_scores(cls_logits, obj_logits):
+    """Raw head outputs -> (every cell's score [B, g*g], the margin
+    between its two most probable classes [B, g*g]), as the decode
+    computes them before its top-k."""
+    b = cls_logits.shape[0]
+    probs = torch.softmax(
+        cls_logits.reshape(b, -1, cls_logits.shape[-1]).float(), dim=-1)
+    score = torch.sigmoid(obj_logits.reshape(b, -1).float()) * probs.amax(-1)
+    top2 = probs.topk(2, dim=-1).values
+    return score, top2[..., 0] - top2[..., 1]
+
+
+def near_boundary(score, margin, thresholds, k: int):
+    """Rows [B] whose detections (the top-k cells) sit within NEAR_BAND
+    of a decision boundary -> (a detection's score near one of
+    `thresholds`, the score threshold rule; the k-th and (k+1)-th scores
+    near each other (the top-k cut) or a detection's two classes near a
+    tie)."""
+    ranked = score.sort(dim=-1, descending=True).values
+    kept = score >= ranked[:, k - 1:k]
+    near_t = torch.zeros(score.shape[0], dtype=torch.bool,
+                         device=score.device)
+    for t in thresholds:
+        near_t |= (((score - t).abs() < NEAR_BAND) & kept).any(-1)
+    near_other = ((margin < NEAR_BAND) & kept).any(-1)
+    if ranked.shape[1] > k:
+        near_other |= ranked[:, k - 1] - ranked[:, k] < NEAR_BAND
+    return near_t, near_other
+
+
+def _keep_obs(args, kwargs, out):
+    return _clone(out)
+
+
+def _keep_raw(args, kwargs, out):
+    cls_logits, _, obj_logits = args[1:]
+    return tuple(x.cpu() for x in raw_scores(cls_logits, obj_logits))
+
+
+def _check_detector_result(result, label) -> None:
+    chosen = torch.tensor(result.chosen)
+    acc = torch.tensor(result.acc_per_step)
+    if (chosen.shape != (N_STEPS, N_CAMERAS)
+            or not bool(((chosen >= 0) & (chosen < DEFAULT_GRID.n_cells))
+                        .all())
+            or not bool(torch.isfinite(acc).all())
+            or not bool(((acc >= 0) & (acc <= 1)).all())):
+        raise AssertionError(f"{label}: malformed result {result.chosen} "
+                             f"{result.acc_per_step}")
+
+
+def unfused_phase(spec: FleetRunSpec, frozen_steady_s: float) -> dict:
+    """The unfused detector reference (fused=False) at the main path's
+    cell, exhaustive (all N*Z windows, `chunk` of them a slab), and the
+    fused path at shortlist_k = N*Z in the same call, both with the
+    detector weights numpy draws from ANCHOR_SEED, each with the
+    counters set to 0 just before and read just after: the unfused run
+    launches oracle_pass, shape_search and budget_walk once per step and
+    crop_patchify never, the fused run all four once per step; every
+    recorded call equal to its plain version. Then the anchor: every
+    cell's raw score (and class margin) of the two runs within
+    NEAR_BAND; windows with a detection's score within NEAR_BAND of a
+    threshold at most NEAR_SHARE of all; per window the two runs'
+    observation tables agree (counts
+    and nbox exact, areas within 1e-4) except where a detection sits
+    within NEAR_BAND of a decision boundary (read from the fused run's
+    raw scores: a threshold, the top-k cut, a class tie), and on at most
+    NEAR_SHARE of the windows; each camera decides alike up to its first
+    step that holds a differing window. Returns the runs' launch
+    counts."""
+    c = DEFAULT_GRID.n_cells * len(fleet_config(DEFAULT_GRID).zoom_levels)
+    weights = detector_init(np.random.default_rng(ANCHOR_SEED),
+                            spec.provider_kwargs["det_cfg"])
+    anchor = {**spec.provider_kwargs, "det_params": weights,
+              "thresh": FRESH_THRESH}
+    unfused = dataclasses.replace(spec, shortlist_k=None, provider_kwargs={
+        **anchor, "fused": False})
+    fused = dataclasses.replace(spec, shortlist_k=c, provider_kwargs=anchor)
+    steps = spec.n_steps + 1
+    runs, paths = {}, {}
+    for label, s, kernels in (
+            ("unfused (fused=False)", unfused, UNFUSED_KERNELS),
+            (f"fused, shortlist_k={c}", fused, MAIN_PATH_KERNELS)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        with (SearchRecorder() as rec, OracleRecorder() as orec,
+              PatchifyRecorder() as prec,
+              CallRecorder(runner_module, "detections_obs",
+                           _keep_obs) as obs,
+              CallRecorder(detector_module, "_decode_detections",
+                           _keep_raw) as raw):
+            result = run_fleet(s)
+        torch.cuda.synchronize()
+        counts = _lib.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _launched_only(counts, kernels, steps, label)
+        _check_detector_result(result, label)
+        paths[label] = counts
+        tag = f"[{label}]"
+        oracle_phase(orec.calls, steps, tag)
+        search_phase(rec.calls, steps, tag)
+        if s is fused:
+            patchify_phase(prec.calls, steps, tag)
+        del rec, orec, prec
+        t = result.timings
+        print(f"{label}: {N_CAMERAS} cameras x {spec.n_steps} steps x {c} "
+              f"windows: accuracy={result.accuracy:.6f} "
+              f"frames_sent={list(result.frames_sent)} "
+              f"compile_s={t['compile_s']:.3f} steady_s={t['steady_s']:.3f} "
+              f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
+              f"peak_mem_gib={peak:.2f} (with the recorders' clones) "
+              f"launches={counts} (over {spec.n_steps} steps + 1 warm-up "
+              f"step)", flush=True)
+        # one step's raw scores on the [F, C] window axis: the unfused
+        # path decodes slab by slab (window = slab * chunk + j)
+        per_step = len(raw.calls) // steps
+        raw_steps = []
+        for e in range(steps):
+            parts = raw.calls[e * per_step:(e + 1) * per_step]
+            raw_steps.append(tuple(
+                torch.stack([x[i].reshape(N_CAMERAS, -1, x[i].shape[-1])
+                             for x in parts], 1).reshape(N_CAMERAS, c, -1)
+                for i in range(2)))
+        # the episode's steps: the first recorded step is the warm-up
+        runs[label] = dict(result=result, obs=obs.calls[1:],
+                           raw=raw_steps[1:])
+
+    (la, ua), (lb, fa) = runs.items()
+    p = prepare_fleet_run(fused, device="cpu").provider
+    thresholds = tuple(float(x) for x in p.thresh) + (float(p.geo_thresh),)
+    k = p.det_cfg.max_boxes
+    n_diff = n_near_t = n_near_other = 0
+    area_err = score_err = margin_err = 0.0
+    first = torch.full((N_CAMERAS,), spec.n_steps)
+    for e in range(spec.n_steps):
+        a, b = ua["obs"][e], fa["obs"][e]
+        differ = ((a.counts != b.counts).any(-1)
+                  | (a.nbox != b.nbox)
+                  | ((a.areas - b.areas).abs() > 1e-4).any(-1))
+        differ = differ.reshape(N_CAMERAS, c).cpu()
+        score, margin = fa["raw"][e]
+        score_err = max(score_err,
+                        float((ua["raw"][e][0] - score).abs().max()))
+        margin_err = max(margin_err,
+                         float((ua["raw"][e][1] - margin).abs().max()))
+        score, margin = score.reshape(-1, score.shape[-1]), margin.reshape(
+            -1, margin.shape[-1])
+        near_t, near_other = near_boundary(score, margin, thresholds, k)
+        near_t = near_t.reshape(N_CAMERAS, c)
+        near_other = near_other.reshape(N_CAMERAS, c)
+        unexplained = differ & ~(near_t | near_other)
+        if bool(unexplained.any()):
+            where = torch.nonzero(unexplained)[:8].tolist()
+            raise AssertionError(
+                f"anchor step {e}: (camera, window) {where} differ between "
+                f"the unfused and the fused run with no detection near a "
+                f"decision boundary")
+        rest = ~differ.reshape(a.areas.shape[:3]).to(a.areas.device)
+        if bool(rest.any()):
+            area_err = max(area_err, float(
+                (a.areas - b.areas).abs().amax(-1)[rest].max()))
+        n_diff += int(differ.sum())
+        n_near_t += int(near_t.sum())
+        n_near_other += int(near_other.sum())
+        hit = differ.any(-1)
+        first = torch.where(hit & (first == spec.n_steps), e, first)
+    total = N_CAMERAS * c * spec.n_steps
+    if n_near_t > NEAR_SHARE * total:
+        raise AssertionError(
+            f"anchor: {n_near_t} of {total} windows hold a detection within "
+            f"{NEAR_BAND} of a threshold: over the {NEAR_SHARE:.1%} "
+            f"allowed")
+    if n_diff > NEAR_SHARE * total:
+        raise AssertionError(
+            f"anchor: {n_diff} of {total} windows differ: over the "
+            f"{NEAR_SHARE:.1%} allowed")
+    # the band must hold the two formulations' score differences
+    if max(score_err, margin_err) >= NEAR_BAND:
+        raise AssertionError(
+            f"anchor: raw scores differ by {score_err:.3e} (class margins "
+            f"by {margin_err:.3e}): not within {NEAR_BAND}")
+    for f in range(N_CAMERAS):
+        s = int(first[f])
+        for name in ("explored", "order", "zooms", "sent", "chosen"):
+            x = getattr(ua["result"].out, name)[:s, f]
+            y = getattr(fa["result"].out, name)[:s, f]
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"anchor: camera {f} {name} differs before step {s}, "
+                    f"its first step with a differing window")
+    step0 = int(first.min())
+    same = all(torch.equal(getattr(ua["result"].out, name),
+                           getattr(fa["result"].out, name))
+               for name in ("explored", "order", "zooms", "sent", "chosen"))
+    w_sum = float(weights["backbone"]["vit"]["patch_embed"]["w"].sum())
+    print(f"anchor ({la} against {lb}; weights numpy seed {ANCHOR_SEED}, "
+          f"patch-embed sum {w_sum:.6f}): {n_diff} of {total} windows "
+          f"differ in counts, nbox or areas (> 1e-4), each with a "
+          f"detection within {NEAR_BAND} of a decision boundary; windows "
+          f"with a detection's score within {NEAR_BAND} of a threshold: "
+          f"{n_near_t} ({n_near_t / total:.2%}); near the top-{k} cut or "
+          f"a class tie: {n_near_other} ({n_near_other / total:.2%}); raw "
+          f"cell "
+          f"scores max abs diff {score_err:.3e}, class margins "
+          f"{margin_err:.3e}; areas on "
+          f"the rest max abs err {area_err:.3e}; first step holding a "
+          f"differing window: {step0 if step0 < spec.n_steps else 'none'}; "
+          f"decisions (explored, order, zooms, sent, chosen) equal on the "
+          f"{int(first.sum())} of {N_CAMERAS * spec.n_steps} camera-steps "
+          f"before each camera's first differing window (on all: {same})",
+          flush=True)
+    ts = {k: v["result"].timings["steady_s"] for k, v in runs.items()}
+    del runs
+    render_ms, forward_ms = unfused_split(unfused)
+    print(f"unfused step split (one step, card synchronised around each "
+          f"part; ms): render {render_ms:.3f}, detector forward "
+          f"{forward_ms:.3f} over {c // p.chunk} slabs of {N_CAMERAS} x "
+          f"{p.chunk} crops; steady_s unfused={ts[la]:.3f} fused "
+          f"exhaustive={ts[lb]:.3f} fused shortlist_k={SHORTLIST_K} (the "
+          f"main path)={frozen_steady_s:.3f}; unfused / main path = "
+          f"{ts[la] / frozen_steady_s:.2f}", flush=True)
+    return paths
+
+
+def unfused_split(spec: FleetRunSpec) -> tuple[float, float]:
+    """One step of the unfused path's detector stage, apart: every slab
+    rendered (render_fleet_crops), then every slab scored
+    (detector_forward), host clock with the card synchronised around
+    each part, warm (the second of two passes). -> (render ms, forward
+    ms)."""
+    prep = prepare_fleet_run(spec)
+    p, st, cfg = prep.provider, prep.state, prep.cfg
+    sc, dp = p.init_carry(st)
+    kinds = torch.as_tensor(kind_mask(p.scene.spec), device=prep.device)
+    res = p.det_cfg.img_res
+    wins = p.scene.windows
+    with torch.no_grad():
+        sc1, _ = p.scene.oracle(cfg, prep.wl, sc, st)
+        noise = render_noise(st.rng, st.step_idx * p.scene.stride,
+                             res) * p.noise
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            crops = [render_fleet_crops(
+                sc1.pos, sc1.size, kinds, sc1.oid, wins[i:i + p.chunk],
+                res=res, min_visible=p.scene.spec.min_visible, noise=noise)
+                for i in range(0, wins.shape[0], p.chunk)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for x in crops:
+                detector_module.detector_forward(
+                    dp, p.det_cfg, x.reshape((-1,) + x.shape[2:]))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del crops
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def tables_phase(dev) -> dict:
+    """materialize_scene_tables on the card: a homogeneous fleet of
+    N_CAMERAS cameras (one scene seed), N_STEPS steps at 2 fps (shapes of
+    several cells); its tables episode must decide exactly as the scene
+    episode it recorded, pred_acc within 1e-6. Returns the launch counts
+    of materialization, scene episode and tables episode together."""
+    grid = DEFAULT_GRID
+    cfg = fleet_config(grid, BudgetConfig(fps=2.0))
+    wl_obj = FleetRunSpec().workload_obj()
+    wl = workload_spec(wl_obj)
+    provider, st = make_scene_provider(
+        grid, wl_obj, cfg, n_cameras=N_CAMERAS, n_steps=N_STEPS,
+        scene_seeds=[3] * N_CAMERAS, device=dev)
+    statics = fleet_statics(grid, dev)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    tables = materialize_scene_tables(cfg, wl, statics, st, provider)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    with torch.no_grad():
+        _, scene, _, _ = run_fleet_episode(cfg, wl, statics, st, provider)
+        _, replay, _, _ = run_fleet_episode(cfg, wl, statics, st, tables)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    want = {"oracle_pass": 2 * N_STEPS, "shape_search": 3 * N_STEPS,
+            "budget_walk": 3 * N_STEPS}
+    if {k: counts[k] for k in want} != want or any(
+            v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"materialized tables: launches {counts}, "
+                             f"want {want}")
+    for name in ("explored", "order", "n_explored", "zooms", "sent",
+                 "k_send", "chosen"):
+        if not torch.equal(getattr(scene, name), getattr(replay, name)):
+            raise AssertionError(f"materialized tables: {name} of the "
+                                 f"tables episode differs from the scene "
+                                 f"episode's")
+    err = float((scene.pred_acc - replay.pred_acc).abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"materialized tables: pred_acc differs by "
+                             f"{err}")
+    print(f"materialized tables: {N_CAMERAS} cameras of one scene seed x "
+          f"{N_STEPS} steps at 2 fps, recorded in {mat_s:.3f} s; the "
+          f"tables episode decides exactly as the scene episode (mean "
+          f"shape {float(scene.n_explored.float().mean()):.2f} cells, "
+          f"frames sent {int(scene.sent.sum())}); pred_acc max abs err "
+          f"{err:.3e}; launches={counts} (materialization, scene episode, "
+          f"tables episode)", flush=True)
+    return counts
+
+
+def _full_width_images(n: int, seed: int) -> torch.Tensor:
+    """n cameras' first-window crops at madeye-approx's 224 px, with
+    render noise, from a seeded scene (CPU)."""
+    spec = SceneSpec()
+    res = get_config("madeye-approx").img_res
+    params, rng = scene_fleet_params(spec, n, seed=seed)
+    sc = advance_scene(spec, params, rng, init_scene(spec, params, rng), 2,
+                       4)
+    kinds = torch.as_tensor(kind_mask(spec))
+    wins = grid_windows(DEFAULT_GRID)
+    crops = render_fleet_crops(sc.pos, sc.size, kinds, sc.oid,
+                               wins[torch.arange(n) % wins.shape[0]][:, None],
+                               res=res, noise=0.05 * render_noise(rng, 2,
+                                                                  res))
+    return crops[:, 0]
+
+
+def engine_phase(dev) -> dict:
+    """The serving engine on the card: run_fleet_detector_controller at
+    ENGINE_CAMERAS cameras, ENGINE_STEPS steps (full width, shortlist
+    18) decides exactly as run_fleet on the same spec; then
+    InferenceEngine.counts_and_areas on N_CAMERAS full-width images
+    against the CPU's: counts exact and areas within 1e-4 but on images
+    with a detection within NEAR_BAND of a decision boundary. Returns
+    the shim's launch counts."""
+    full = get_config("madeye-approx")
+    wl = FleetRunSpec().workload_obj()
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    _, out = run_fleet_detector_controller(
+        DEFAULT_GRID, wl, BudgetConfig(), n_cameras=ENGINE_CAMERAS,
+        n_steps=ENGINE_STEPS, det_cfg=full, shortlist_k=SHORTLIST_K)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    _launched_only(counts, MAIN_PATH_KERNELS, ENGINE_STEPS,
+                   "run_fleet_detector_controller")
+    res = run_fleet(FleetRunSpec(
+        provider="detector", n_cameras=ENGINE_CAMERAS, n_steps=ENGINE_STEPS,
+        shortlist_k=SHORTLIST_K, provider_kwargs={"det_cfg": full}))
+    for name in ("explored", "order", "zooms", "sent", "chosen"):
+        if not torch.equal(getattr(out, name), getattr(res.out, name)):
+            raise AssertionError(f"run_fleet_detector_controller: {name} "
+                                 f"differs from run_fleet's")
+    print(f"run_fleet_detector_controller: {ENGINE_CAMERAS} cameras x "
+          f"{ENGINE_STEPS} steps decide as run_fleet (chosen "
+          f"{out.chosen.cpu().tolist()}); launches={counts}", flush=True)
+
+    params = detector_init(torch.Generator().manual_seed(0), full)
+    images = _full_width_images(N_CAMERAS, seed=4)
+    thresh = 0.5
+    on_card = InferenceEngine(full, params, dev).counts_and_areas(
+        images, score_thresh=thresh)
+    on_cpu = InferenceEngine(full, params, "cpu").counts_and_areas(
+        images, score_thresh=thresh)
+    with torch.no_grad():
+        cls_logits, _, obj_logits = detector_raw(params, full, images)
+    near_t, near_other = near_boundary(*raw_scores(cls_logits, obj_logits),
+                                       (thresh,), full.max_boxes)
+    differ = ((on_card[0].cpu() != on_cpu[0])
+              | ((on_card[1].cpu() - on_cpu[1]).abs() > 1e-4))
+    if bool((differ & ~(near_t | near_other)).any()):
+        raise AssertionError("InferenceEngine: card and CPU differ on an "
+                             "image with no detection near a boundary")
+    area_err = float((on_card[1].cpu() - on_cpu[1]).abs()[~differ].max())
+    print(f"InferenceEngine.counts_and_areas, {N_CAMERAS} images of "
+          f"{full.img_res} px at score_thresh {thresh}: card and CPU "
+          f"differ on {int(differ.sum())} images, each with a detection "
+          f"within {NEAR_BAND} of a boundary (near the threshold: "
+          f"{int(near_t.sum())}, the top-{full.max_boxes} cut or a class "
+          f"tie: {int(near_other.sum())}); areas on the rest max abs err "
+          f"{area_err:.3e}; counts {on_card[0].cpu().tolist()[:8]}...",
+          flush=True)
+    return counts
+
+
+def continual_phase(dev) -> None:
+    """The host continual-learning step on the card: FINETUNE_STEPS
+    finetune_step calls at full width on 8 images, against the same on
+    the CPU: the loss within 1e-4 relative each step, the backbone
+    bit-unchanged."""
+    full = get_config("madeye-approx")
+    params = detector_init(torch.Generator().manual_seed(1), full)
+    images = _full_width_images(8, seed=5)
+    tgt = teacher_labels(
+        [[[0.2 + 0.08 * i, 0.4, 0.2, 0.3], [0.7, 0.1 + 0.1 * i, 0.1, 0.1]]
+         for i in range(8)], [[i % 2, 1] for i in range(8)],
+        full.max_boxes)
+    losses, times = {}, {}
+    for d in ("cpu", dev):
+        p = detector_module.params_from_numpy(params, d)
+        backbone = [x.clone() for x in tree_leaves(p["backbone"])]
+        opt = continual.init_finetune(p)
+        args = [torch.as_tensor(x, device=d)
+                for x in (images, tgt.boxes, tgt.classes, tgt.valid)]
+        losses[str(d)] = []
+        t0 = time.perf_counter()
+        for _ in range(FINETUNE_STEPS):
+            p, opt, loss = continual.finetune_step(p, opt, full, *args,
+                                                   lr=3e-3)
+            losses[str(d)].append(float(loss))
+        times[str(d)] = (time.perf_counter() - t0) / FINETUNE_STEPS
+        if not all(torch.equal(a, b)
+                   for a, b in zip(backbone, tree_leaves(p["backbone"]))):
+            raise AssertionError(f"finetune_step on {d}: the backbone "
+                                 f"changed")
+    card, cpu = torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"])
+    rel = float(((card - cpu).abs() / cpu.abs()).max())
+    if rel > 1e-4 or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"finetune_step: card loss {losses['cuda']} vs "
+                             f"CPU {losses['cpu']}")
+    print(f"host continual step: {FINETUNE_STEPS} finetune_step calls at "
+          f"{full.img_res} px on 8 images: loss on the card "
+          f"{[round(v, 6) for v in losses['cuda']]}, max rel err against "
+          f"the CPU {rel:.3e}; backbone bit-unchanged; "
+          f"{times['cuda'] * 1e3:.1f} ms a step on the card (host clock, "
+          f"loss read back)", flush=True)
+
+
+def examples_phase() -> None:
+    """Each port example as `python -m repro_torch.examples.<name>` in a
+    subprocess on the card, with small REPRO_EX_* overrides: exit 0 and
+    its result line printed."""
+    root = Path(__file__).resolve().parent
+    for name, overrides, marker in EXAMPLES:
+        env = dict(os.environ, **overrides)
+        env["PYTHONPATH"] = str(root / "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}"], env=env,
+            cwd=root, capture_output=True, text=True, timeout=600)
+        line = next((ln for ln in proc.stdout.splitlines() if marker in ln),
+                    None)
+        if proc.returncode != 0 or line is None:
+            raise AssertionError(
+                f"example {name}: exit {proc.returncode}\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        print(f"example {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{line.strip()}", flush=True)
 
 
 def vit_flash_phase(spec: FleetRunSpec):
@@ -1797,6 +2295,14 @@ def main() -> int:
         metrics=MetricsSpec()), frozen_s * FULL_STEPS / N_STEPS, dev,
         f"distill path, full mode (depth cut to {FULL_STEPS} steps)")
     distill_parity_phase()
+    # this slice's paths: the unfused detector reference and its anchor,
+    # materialized tables, the serving engine, the host fine-tune, the
+    # examples
+    slice_paths = unfused_phase(spec, frozen_s)
+    slice_paths["materialized tables"] = tables_phase(dev)
+    slice_paths["run_fleet_detector_controller"] = engine_phase(dev)
+    continual_phase(dev)
+    examples_phase()
     random_search_phase(dev)
     vit_row, dets = vit_flash_phase(spec)
     counts["flash_attention"] = vit_row["launches"]
@@ -1819,6 +2325,8 @@ def main() -> int:
         tables_graph_ms = {label: rr[name]["graph_ms"]
                            for label, rr in served["rows"].items()
                            if name in rr}
+        slice_launches = {label: c[name] for label, c in slice_paths.items()
+                          if name in MAIN_PATH_KERNELS}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
@@ -1829,7 +2337,9 @@ def main() -> int:
             **({"serve_launches": served_launches}
                if served_launches else {}),
             **({"tables_graph_ms": tables_graph_ms}
-               if tables_graph_ms else {})})
+               if tables_graph_ms else {}),
+            **({"slice_launches": slice_launches}
+               if slice_launches else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

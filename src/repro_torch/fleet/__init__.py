@@ -12,7 +12,10 @@ from repro_torch.fleet.api import (
 from repro_torch.fleet.runner import (
     EpisodeTables,
     build_episode_tables,
+    make_detector_provider,
+    make_scene_provider,
     make_tables_provider,
+    materialize_scene_tables,
     run_fleet_episode,
 )
 from repro_torch.fleet.state import (

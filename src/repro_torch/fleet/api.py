@@ -56,6 +56,7 @@ from repro_torch.fleet.state import (
 )
 from repro_torch.fleet.step import FleetStepOut
 from repro_torch.learn.spec import DistillSpec, normalize_distill
+from repro_torch.models.layers import full_float32
 from repro_torch.obs.metrics import MetricsSpec, normalize_metrics
 from repro_torch.obs.trace import span
 
@@ -328,19 +329,21 @@ def _sync(dev: torch.device) -> None:
 def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
     """THE fleet entry point: spec in, typed result out.
 
-    Runs on the CUDA card unless `device="cpu"`. It turns TF32 off for
-    float32 matrix products and cuDNN convolutions
-    (torch.backends.cuda.matmul.allow_tf32 and
-    torch.backends.cudnn.allow_tf32 = False) so the detector runs in full
-    float32, as the model is specified. timings["compile_s"] is one
-    warm-up step on the initial state (its result discarded; the kernels
-    are built and loaded there; with distillation on it takes an update
-    of its own fresh LearnState), timings["steady_s"] the whole episode
+    Runs on the CUDA card unless `device="cpu"`. It turns TF32 off
+    (`models.layers.full_float32`) for the run, so the detector runs in
+    full float32, and restores the flags after it.
+    timings["compile_s"] is one warm-up step on the initial state (its
+    result discarded; the kernels are built and loaded there; with
+    distillation on it takes an update of its own fresh LearnState),
+    timings["steady_s"] the whole episode
     after it; `camera_steps_per_s` is computed from steady_s. The
     episode runs under torch.no_grad(); the distillation update takes
     its gradients with torch.func, which that does not switch off."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    with full_float32():
+        return _run_fleet(spec, device)
+
+
+def _run_fleet(spec: FleetRunSpec, device) -> FleetResult:
     prep = prepare_fleet_run(spec, device=device)
     dev = prep.device
     mspec = spec.metrics

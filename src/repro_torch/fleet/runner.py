@@ -25,7 +25,13 @@ that owns a carry (`init_carry`), per-step inputs (`scan_xs`, leading
     the provider also learns in the episode (paper §3.4, repro_torch
     .learn): per-camera heads (or whole networks) score the shortlist
     and train on teacher grades of the crops the budget sent, after
-    every controller step.
+    every controller step. `fused=False` is the unfused reference: every
+    window rendered to pixels and scored through the image-level
+    detector forward, one slab of `chunk` windows at a time — the
+    anchor the fused path is held against.
+
+`materialize_scene_tables` records a scene episode's observation stream
+(the `collect_obs` extra) as EpisodeTables the tables path replays.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from repro_torch.learn.pairs import (
 from repro_torch.learn.spec import normalize_distill
 from repro_torch.models.detector import (
     detections_from_feats,
+    detector_forward,
     detector_forward_tokens,
     detector_init,
     detector_neck_feats_tokens,
@@ -79,7 +86,7 @@ from repro_torch.scene.observe import (
     observe_all_cells,
     teacher_arrays,
 )
-from repro_torch.scene.render import render_noise
+from repro_torch.scene.render import render_fleet_crops, render_noise
 from repro_torch.scene.scene import (
     SceneFleetParams,
     SceneSpec,
@@ -95,6 +102,11 @@ from repro_torch.serving.pipeline import (
     _observation_from_tables,
 )
 from repro_torch.serving.transport import NetworkTrace
+
+# FleetObs fields recorded by collect_obs (everything but the network
+# leaves, which a provider carries separately as [E] / [E, F] traces)
+_TABLE_FIELDS = ("counts", "areas", "centroid", "spread", "extent",
+                 "nbox", "acc_true")
 
 
 class EpisodeTables(NamedTuple):
@@ -218,6 +230,11 @@ class DetectorProvider:
     the crop_patchify kernel and scored by one batched detector forward
     per step. Build with `make_detector_provider`.
 
+    fused=False is the unfused reference (exhaustive only): every window
+    rendered to pixels (`render_fleet_crops`) and scored by the
+    image-level `detector_forward`, `chunk` windows at a time; the fused
+    path at shortlist_k = N*Z makes the same decisions.
+
     With `distill` set (a repro_torch.learn.DistillSpec) the provider
     LEARNS in the episode: a LearnState (per-camera trainable params,
     optimizer state, pair ring) joins the carry, the forward routes
@@ -232,8 +249,9 @@ class DetectorProvider:
     geo_thresh: torch.Tensor    # [] score floor for zoom geometry
     noise: torch.Tensor         # [] render noise scale
     nbr8: torch.Tensor          # [N, N] 8-neighbor mask (shortlist ring)
-    chunk: int                  # windows per render slab (CPU plain path)
+    chunk: int                  # windows per render slab
     shortlist_k: int = 0        # windows scored per camera (0 = all)
+    fused: bool = True          # fused fast path vs the unfused slab loop
     distill: object = None      # repro_torch.learn.DistillSpec | None
 
     @property
@@ -285,8 +303,10 @@ class DetectorProvider:
         if learn_on:
             dets, lc = self._score_learn(cfg, state, sc, dp, lc, kinds,
                                          noise_img)
-        else:
+        elif self.fused:
             dets = self._score_fused(cfg, state, sc, dp, kinds, noise_img)
+        else:
+            dets = self._score_chunked(sc, dp, kinds, noise_img)
         do = detections_obs(dets, p.windows, pair_cls, self.thresh,
                             self.geo_thresh, o.acc_true,
                             n_zoom=len(cfg.zoom_levels))
@@ -325,6 +345,25 @@ class DetectorProvider:
             dp, self.det_cfg, tokens.reshape((f * k,) + tokens.shape[2:]))
         dets = type(dets)(*(x.reshape((f, k) + x.shape[1:]) for x in dets))
         return _scatter_dets(dets, widx, c)
+
+    def _score_chunked(self, sc, dp, kinds, noise_img):
+        """The unfused reference: per slab of `chunk` windows, render the
+        [F, chunk] crops to pixels and score them with one
+        detector_forward over [F * chunk] images; window index = slab *
+        chunk + j. Peak pixel memory [F, chunk, res, res, 3]."""
+        p = self.scene
+        c = p.windows.shape[0]
+        f = sc.pos.shape[0]
+        slabs = []
+        for s in range(0, c, self.chunk):
+            crops = render_fleet_crops(
+                sc.pos, sc.size, kinds, sc.oid,
+                p.windows[s:s + self.chunk], res=self.det_cfg.img_res,
+                min_visible=p.spec.min_visible, noise=noise_img)
+            d = detector_forward(dp, self.det_cfg,
+                                 crops.reshape((-1,) + crops.shape[2:]))
+            slabs.append([x.reshape((f, -1) + x.shape[1:]) for x in d])
+        return type(d)(*(torch.cat(xs, dim=1) for xs in zip(*slabs)))
 
     def _score_learn(self, cfg, state, sc, dp, lc, kinds, noise_img):
         """The fused fast path routed through the LEARNED per-camera
@@ -656,12 +695,12 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
     is 0.3 for fresh weights and 0.5 for given ones, and `geo_thresh`
     (zoom-geometry score floor) follows at +0.05. `shortlist_k` caps the
     windows rendered + scored per camera per step (a multiple of the
-    zoom count; None scores all N*Z). `chunk` bounds the CPU plain
-    path's render slab (must divide N*Z; default one cell-row of zooms).
-    `scene_kwargs` are make_scene_provider's knobs."""
-    if not fused:
-        raise NotImplementedError(
-            "only the fused fast path is ported (fused=False is not)")
+    zoom count; None scores all N*Z). `fused=False` picks the unfused
+    reference (every window rendered to pixels and scored by the
+    image-level forward; exhaustive only, no distillation). `chunk`
+    bounds the render slab of the unfused path and of the fused path's
+    plain version on the CPU (must divide N*Z; default one cell-row of
+    zooms). `scene_kwargs` are make_scene_provider's knobs."""
     if det_cfg is None:
         det_cfg = get_smoke_config("madeye-approx")
     trained = det_params is not None
@@ -687,7 +726,8 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
     elif c % chunk != 0:
         raise ValueError(
             f"chunk={chunk} must divide the {c} candidate windows "
-            f"(n_cells * n_zoom)")
+            f"(n_cells * n_zoom) — a non-dividing slab would silently "
+            f"fall back to rendering all windows at once")
     if shortlist_k is None:
         shortlist_k = c
     elif not (0 < shortlist_k <= c) or shortlist_k % z != 0:
@@ -695,6 +735,11 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
             f"shortlist_k={shortlist_k} must be a multiple of the "
             f"{z} zoom levels in [{z}, {c}] — the shortlist keeps whole "
             f"cells (all zooms of a kept cell are scored)")
+    if not fused and shortlist_k < c:
+        raise ValueError(
+            "the chunked reference path (fused=False) is exhaustive-"
+            f"only; drop shortlist_k={shortlist_k} or use the fused "
+            "fast path")
     if shortlist_k < c and (float(np.min(np.asarray(thresh))) <= 0.0
                             or float(geo_thresh) <= 0.0):
         raise ValueError(
@@ -703,11 +748,18 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
             f"detections (got thresh={thresh!r}, "
             f"geo_thresh={geo_thresh!r})")
     distill = normalize_distill(distill)
-    if distill is not None and distill.harvest > grid.n_cells:
-        raise ValueError(
-            f"distill.harvest={distill.harvest} exceeds the "
-            f"{grid.n_cells} grid cells — no step can send that many "
-            f"distinct orientations")
+    if distill is not None:
+        if not fused:
+            raise ValueError(
+                "in-scan distillation rides the fused fast path (the "
+                "student payload is staged from the fused forward); the "
+                "chunked reference (fused=False) stays the frozen "
+                "bit-exact anchor — drop distill or fused=False")
+        if distill.harvest > grid.n_cells:
+            raise ValueError(
+                f"distill.harvest={distill.harvest} exceeds the "
+                f"{grid.n_cells} grid cells — no step can send that many "
+                f"distinct orientations")
     provider = DetectorProvider(
         scene=scene, det_cfg=det_cfg, det_params=det_params,
         thresh=torch.as_tensor(np.broadcast_to(
@@ -717,7 +769,7 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
                                 device=device),
         noise=torch.tensor(noise, dtype=torch.float32, device=device),
         nbr8=fleet_statics(grid, device).neighbor8,
-        chunk=chunk, shortlist_k=shortlist_k, distill=distill)
+        chunk=chunk, shortlist_k=shortlist_k, fused=fused, distill=distill)
     return provider, state
 
 
@@ -727,17 +779,21 @@ def make_detector_provider(grid, workload: Workload, cfg: FleetConfig, *,
 
 def episode_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
                  state: FleetState, provider, carry, e: int, *,
-                 metrics=None):
+                 metrics=None, collect_obs: bool = False):
     """One controller step e: provider.observe, fleet_step, then (for a
     learning provider) provider.learn, and with `metrics` (a
     MetricsSpec) step_metrics. -> (state, carry, FleetStepOut, extras):
     extras holds "metrics" (the FleetMetrics dict, with distill_loss /
-    distill_lr joining it on learning runs) and "learn" (the learn aux)
-    where they apply, else it is empty."""
+    distill_lr joining it on learning runs), "learn" (the learn aux) and
+    with `collect_obs` "obs" (camera 0's observation tables, the
+    _TABLE_FIELDS of its FleetObs) where they apply, else it is
+    empty."""
     xs = tuple(x[e] for x in provider.scan_xs())
     carry, obs = provider.observe(cfg, wl, carry, state, xs)
     state2, out = fleet_step(cfg, wl, statics, state, obs)
     ex = {}
+    if collect_obs:
+        ex["obs"] = {f: getattr(obs, f)[0] for f in _TABLE_FIELDS}
     if getattr(provider, "learns", False):
         carry, laux = provider.learn(cfg, wl, carry, state2, out, e)
         ex["learn"] = laux
@@ -752,13 +808,14 @@ def episode_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
 
 def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
                       statics: FleetStatics, state: FleetState, provider,
-                      *, metrics=None):
+                      *, metrics=None, collect_obs: bool = False):
     """The episode: E controller steps carrying (state, provider carry).
 
     Returns (final state, FleetStepOut with leaves stacked [E, F, ...],
     extras, final carry). extras holds "metrics" (the FleetMetrics dict,
-    leaves [E, F]) when `metrics` (a MetricsSpec) is on, and "learn"
-    (the learn aux, leaves [E, F]) for a LEARNING provider
+    leaves [E, F]) when `metrics` (a MetricsSpec) is on, "obs" (camera
+    0's observation tables, leaves [E, N, Z, ...]) with `collect_obs`,
+    and "learn" (the learn aux, leaves [E, F]) for a LEARNING provider
     (DetectorProvider with distill set), whose final carry holds the
     learned params (provider.learned_params(final_carry)). Prefer
     `repro_torch.fleet.api.run_fleet(spec)` unless composing
@@ -770,10 +827,35 @@ def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
     for e in range(provider.n_steps):
         state, carry, out, ex = episode_step(cfg, wl, statics, state,
                                              provider, carry, e,
-                                             metrics=metrics)
+                                             metrics=metrics,
+                                             collect_obs=collect_obs)
         outs.append(out)
         exs.append(ex)
     out = FleetStepOut(*(torch.stack(v) for v in zip(*outs)))
     ex = {name: {k: torch.stack([x[name][k] for x in exs])
                  for k in exs[0][name]} for name in exs[0]} if exs else {}
     return state, out, ex, carry
+
+
+def materialize_scene_tables(cfg: FleetConfig, wl: WorkloadSpec,
+                             statics: FleetStatics, state: FleetState,
+                             provider: SceneProvider) -> EpisodeTables:
+    """Record the observation stream camera 0 of `provider` sees as
+    EpisodeTables the tables path can replay (on the provider's device).
+
+    Runs the same full-fleet scene episode (not an F = 1 slice), so the
+    recorded floats are the ones the scene provider feeds fleet_step: a
+    homogeneous fleet's tables episode then decides exactly as its scene
+    episode. For cheap replay tables where that does not matter, build
+    the provider and state at n_cameras=1 and materialize that."""
+    with torch.no_grad():
+        _, _, ex, _ = run_fleet_episode(cfg, wl, statics, state, provider,
+                                        collect_obs=True)
+    rec = ex["obs"]
+    mbps, rtt = provider.mbps, provider.rtt
+    if mbps.dim() == 2:
+        mbps = mbps[:, 0]
+    if rtt.dim() == 2:
+        rtt = rtt[:, 0]
+    return EpisodeTables(mbps=mbps, rtt=rtt,
+                         **{f: rec[f] for f in _TABLE_FIELDS})

@@ -3,22 +3,27 @@ the CUDA kernel's wrapper (csrc/crop_patchify.cu) and the
 provider-native entry `crop_patchify`.
 
 The plain version composes the two stages the kernel fuses: render every
-(camera, window) crop — last-painter-wins ownership packed into words
-of 32 lanes, one lane per object, owner = the highest set bit of the
-highest nonzero word of rowbits & colbits — then apply the conv
-patch-embed (stride = patch, VALID) as a patchify + matrix product. Its
-pixels are bit-identical to the reference renderer's packed path; the
-kernel paints the same pixels tile by tile and never writes them to
-device memory.
+(camera, window) crop with the one renderer (scene/render
+.render_crops_plain: last-painter-wins ownership in words of 32 lanes),
+then apply the conv patch-embed (stride = patch, VALID) as a patchify +
+matrix product (models/layers.patch_embed, the computation vit_embed
+makes on images, so the unfused detector path's tokens are these
+tokens). The kernel paints the same pixels tile by tile and never
+writes them to device memory.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.scene.render import object_colors, render_background
+from repro_torch.models.layers import patch_embed
+from repro_torch.scene.render import (
+    WORD,
+    object_colors,
+    render_background,
+    render_crops_plain,
+)
 
-WORD = 32               # object slots per ownership word (uint32)
 MAX_WORDS = 8           # the kernel's ownership words: up to 256 slots
 MAX_OBJECTS = WORD * MAX_WORDS
 K_CHUNK = 64            # the kernel's K depth per ring stage
@@ -80,81 +85,19 @@ def tf32_split_weights(wflat: torch.Tensor) -> torch.Tensor:
                           4).permute(1, 4, 0, 2, 5, 3, 6).contiguous()
 
 
-def render_crops_plain(ox, oy, ow, oh, colors, windows, bgn, *, res: int,
-                       min_visible: float) -> torch.Tensor:
-    """ox/oy/ow/oh [F, M] boxes; colors [F, M, 3]; windows [F, K, 4] or
-    fleet-shared [K, 4]; bgn [F, res, res, 3] background + noise.
-    -> crops [F, K, res, res, 3] in [0, 1]."""
-    f, m = ox.shape
-    if windows.dim() == 2:
-        windows = windows[None].expand(f, -1, -1)
-    x0 = windows[..., 0][..., None]                  # [F, K, 1]
-    y0 = windows[..., 1][..., None]
-    fw = windows[..., 2][..., None]
-    fh = windows[..., 3][..., None]
-    ox0 = (ox - ow / 2)[:, None]                     # [F, 1, M]
-    ox1 = (ox + ow / 2)[:, None]
-    oy0 = (oy - oh / 2)[:, None]
-    oy1 = (oy + oh / 2)[:, None]
-
-    ix0 = torch.maximum(ox0, x0)
-    ix1 = torch.minimum(ox1, x0 + fw)
-    iy0 = torch.maximum(oy0, y0)
-    iy1 = torch.minimum(oy1, y0 + fh)
-    inter = (torch.clamp(ix1 - ix0, min=0.0)
-             * torch.clamp(iy1 - iy0, min=0.0))
-    area = (ox1 - ox0) * (oy1 - oy0)
-    keep = inter / torch.clamp(area, min=1e-9) >= min_visible
-
-    # clip first, then truncate (all values non-negative)
-    px0 = torch.clamp((ix0 - x0) / fw * res, 0, res - 1).to(torch.int64)
-    px1 = torch.clamp((ix1 - x0) / fw * res + 1, 1, res).to(torch.int64)
-    py0 = torch.clamp((iy0 - y0) / fh * res, 0, res - 1).to(torch.int64)
-    py1 = torch.clamp((iy1 - y0) / fh * res + 1, 1, res).to(torch.int64)
-
-    # objects in words of 32 lanes (slot 32 w + j is bit j of word w),
-    # padded slots never painting
-    n_w = max(1, -(-m // WORD))
-    pad = n_w * WORD - m
-    lane = torch.ones(WORD, dtype=torch.int64,
-                      device=ox.device) << torch.arange(WORD,
-                                                        device=ox.device)
-    rc = torch.arange(res, device=ox.device)
-
-    def words(lo, hi):                               # -> [F, K, W, res]
-        hit = (keep[..., None] & (rc >= lo[..., None])
-               & (rc < hi[..., None]))               # [F, K, M, res]
-        hit = torch.nn.functional.pad(hit.to(torch.int64), (0, 0, 0, pad))
-        hit = hit.reshape(f, -1, n_w, WORD, res)
-        return torch.sum(hit * lane[:, None], dim=-2)
-
-    rowbits, colbits = words(py0, py1), words(px0, px1)
-    bits = rowbits[..., :, None] & colbits[..., None, :]   # [F,K,W,r,r]
-    # highest set bit: bits = mant * 2**e with mant in [0.5, 1), exact in
-    # float64 below 2**53; frexp(0) gives e = 0, so empty words read -1;
-    # the owner is the highest set bit of the highest nonzero word
-    top = torch.frexp(bits.to(torch.float64)).exponent.to(torch.int64) - 1
-    base = WORD * torch.arange(n_w, device=ox.device)
-    owner = torch.where(top >= 0, top + base[:, None, None], -1).amax(2)
-    cam = torch.arange(f, device=ox.device)[:, None, None, None]
-    painted = colors[cam, torch.clamp(owner, min=0)]       # [F,K,r,r,3]
-    img = torch.where((owner >= 0)[..., None], painted, bgn[:, None])
-    return torch.clamp(img, 0.0, 1.0)
-
-
 def crop_patchify_plain(ox, oy, ow, oh, colors, windows, bgn, wflat, bias,
                         *, res: int, patch: int,
                         min_visible: float) -> torch.Tensor:
-    """Render (render_crops_plain) + conv patch-embed. wflat [p*p*3, D]
-    (HWIO weights flattened), bias [D] -> tokens [F, K, (res/p)^2, D]."""
+    """Render (scene/render.render_crops_plain) + the conv patch-embed
+    (models/layers.patch_embed, as vit_embed computes it). wflat
+    [p*p*3, D] (HWIO weights flattened), bias [D] -> tokens [F, K,
+    (res/p)^2, D]."""
     crops = render_crops_plain(ox, oy, ow, oh, colors, windows, bgn,
                                res=res, min_visible=min_visible)
     f, k = crops.shape[:2]
-    g = res // patch
-    tiles = crops.reshape(f * k, g, patch, g, patch, 3).permute(
-        0, 1, 3, 2, 4, 5).reshape(f * k, g * g, patch * patch * 3)
-    tok = torch.matmul(tiles, wflat) + bias
-    return tok.reshape(f, k, g * g, -1)
+    tok = patch_embed(crops.reshape((f * k,) + crops.shape[2:]), wflat,
+                      bias, patch=patch)
+    return tok.reshape((f, k) + tok.shape[1:])
 
 
 def crop_patchify_batch(ox, oy, ow, oh, colors, windows, bgn, wflat,

@@ -3,10 +3,13 @@ ring) riding the episode carry.
 
 `LearnState` rides the DetectorProvider carry; `distill_step` is the
 optimizer step the episode takes after every controller step, on the
-cadence DistillSpec.every sets. The design constraints, in order:
+cadence DistillSpec.every sets. `finetune_update` is the host-side
+continual-learning step (core/continual.finetune_step) over image
+batches. The design constraints, in order:
 
   * one update rule — `optimizer_apply` is the single place an
-    optimizer touches params (train/optim.py's AdamW / SGD);
+    optimizer touches params (train/optim.py's AdamW / SGD), for the
+    in-episode and the host-side step alike;
   * per-camera independence — the loss is mapped per camera
     (`torch.func.vmap`), gradient clipping is per camera (one global
     norm over all leaves would couple cameras through the fleet axis,
@@ -32,6 +35,8 @@ from torch.func import grad_and_value, vmap
 from repro_torch.learn.loss import distill_full_loss, distill_head_loss
 from repro_torch.learn.pairs import PairBuffer, init_pair_buffer
 from repro_torch.learn.spec import DistillSpec
+from repro_torch.models import detector as det
+from repro_torch.models.layers import full_float32
 from repro_torch.train import optim
 from repro_torch.train.optim import tree_leaves, tree_map
 
@@ -213,3 +218,43 @@ def merged_params(dspec: DistillSpec, det_params, trained, camera=None):
     if dspec.head_only:
         return {"backbone": det_params["backbone"], "heads": trained}
     return trained
+
+
+# ---------------------------------------------------------------------------
+# host-side fine-tune (core/continual.py delegates here)
+# ---------------------------------------------------------------------------
+
+def _global_clip(grads) -> Any:
+    """Scale every leaf by min(1, 1.0 / the global norm over all
+    leaves), the per-leaf sums added in sorted-key leaf order."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in tree_leaves(grads)))
+    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads)
+
+
+def finetune_update(params, opt_state, cfg, images, gt_boxes, gt_classes,
+                    gt_valid, *, lr: float = 1e-3):
+    """One host-side continual-learning step on an image batch: the
+    detector loss with the backbone frozen (its features detached), the
+    gradient clipped to a global norm of 1.0, then heads-only AdamW
+    (weight decay 1e-4) through `optimizer_apply`, in full float32
+    (`full_float32`). images [B, H, W, 3], gt_boxes [B, N, 4],
+    gt_classes [B, N], gt_valid [B, N]. Returns (params', state',
+    loss); the backbone leaves come back as the same tensors."""
+    def loss_fn(p):
+        return det.detector_loss(p, cfg, images, gt_boxes, gt_classes,
+                                 gt_valid, freeze_backbone=True)
+
+    with full_float32():
+        grads, loss = grad_and_value(loss_fn)(params)
+        params, opt_state = optimizer_apply(
+            "adamw", params, _global_clip(grads), opt_state, lr=lr,
+            mask=det.head_params_mask(params), weight_decay=1e-4)
+    return params, opt_state, loss.detach()
+
+
+def init_finetune_state(params):
+    """AdamW state sized to the heads only (masked leaves keep 0-d
+    moments)."""
+    return optim.adamw_init(params, det.head_params_mask(params))

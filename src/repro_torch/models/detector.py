@@ -113,6 +113,22 @@ def _decode_detections(cfg: DetectorConfig, cls_logits, box_raw,
     return Detections(top_boxes, top_scores, top_probs)
 
 
+def detector_raw(params: Params, cfg: DetectorConfig,
+                 images: torch.Tensor):
+    """Images [B, H, W, 3] -> the raw head outputs of `detector_raw_tokens`
+    on their patch tokens (vit.vit_embed)."""
+    tokens = vit.vit_embed(params["backbone"]["vit"], images,
+                           patch=cfg.patch)
+    return detector_raw_tokens(params, cfg, tokens)
+
+
+def detector_forward(params: Params, cfg: DetectorConfig,
+                     images: torch.Tensor) -> Detections:
+    """Images [B, H, W, 3] -> top-`max_boxes` Detections per image (the
+    unfused detector path and the serving engine)."""
+    return _decode_detections(cfg, *detector_raw(params, cfg, images))
+
+
 def detector_raw_tokens(params: Params, cfg: DetectorConfig,
                         tokens: torch.Tensor):
     """Patch tokens [B, P, D] -> raw head outputs (cls_logits [B, g, g,
@@ -221,6 +237,22 @@ def detector_loss_from_outputs(cls_logits: torch.Tensor,
         box_loss = torch.sum(wpos[..., None] * box_l1) / n_pos
 
     return obj_loss + cls_loss + box_loss
+
+
+def detector_loss(params: Params, cfg: DetectorConfig, images: torch.Tensor,
+                  gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
+                  gt_valid: torch.Tensor, *, freeze_backbone: bool = True):
+    """The detector loss over a full image forward (images [B, H, W, 3]).
+    freeze_backbone detaches the post-neck features, so no gradient
+    reaches params["backbone"] (the host-side fine-tune trains the heads
+    only)."""
+    feats = detector_neck_feats_tokens(params, cfg, vit.vit_embed(
+        params["backbone"]["vit"], images, patch=cfg.patch))
+    if freeze_backbone:
+        feats = feats.detach()
+    return detector_loss_from_outputs(
+        *head_outputs(params["heads"], feats), gt_boxes, gt_classes,
+        gt_valid)
 
 
 def detector_loss_tokens(params: Params, cfg: DetectorConfig,

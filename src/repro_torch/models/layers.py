@@ -10,8 +10,10 @@ is float32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -21,11 +23,24 @@ Params = dict
 
 
 # ---------------------------------------------------------------------------
-# initialisation (truncated normals at +-2 std, from a torch.Generator)
+# initialisation (truncated normals at +-2 std, from a torch.Generator
+# or a numpy Generator)
 # ---------------------------------------------------------------------------
 
-def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
+def trunc_normal(gen, shape, std: float = 0.02,
                  device=None) -> torch.Tensor:
+    """Truncated normal draw. A torch.Generator goes through
+    torch.nn.init.trunc_normal_, whose draws differ between PyTorch
+    versions; a numpy Generator (np.random.default_rng) gives the same
+    weights under any PyTorch (standard normals, those past +-2 drawn
+    again, times std)."""
+    if isinstance(gen, np.random.Generator):
+        z = gen.standard_normal(shape)
+        out = np.abs(z) > 2.0
+        while out.any():
+            z[out] = gen.standard_normal(int(out.sum()))
+            out = np.abs(z) > 2.0
+        return torch.as_tensor((z * std).astype(np.float32), device=device)
     x = torch.empty(shape, dtype=torch.float32)
     torch.nn.init.trunc_normal_(x, 0.0, std, -2.0 * std, 2.0 * std,
                                 generator=gen)
@@ -59,6 +74,24 @@ def layernorm_init(dim: int, *, device=None) -> Params:
             "bias": torch.zeros(dim, device=device)}
 
 
+@contextlib.contextmanager
+def full_float32():
+    """Within the block, TF32 is off for float32 matrix products and
+    cuDNN convolutions (torch.backends.cuda.matmul.allow_tf32 and
+    torch.backends.cudnn.allow_tf32), so the detector runs in full
+    float32 on the card, as the model is specified; the flags are
+    restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -87,6 +120,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(p["down"], gelu(linear(p["up"], x)))
+
+
+def patch_embed(images: torch.Tensor, wflat: torch.Tensor,
+                bias: torch.Tensor | None, *, patch: int) -> torch.Tensor:
+    """The conv patch-embed (a patch x patch conv, stride = patch, VALID)
+    as a patchify and one matrix product: images [B, H, W, C], wflat
+    [patch * patch * C, D] (HWIO weights flattened), bias [D] or None ->
+    tokens [B, (H/patch) * (W/patch), D], patches in row-major order.
+    The one definition of the embed, shared by `vit_embed` and the plain
+    crop -> token stage, so pixels and fused crops embed to equal
+    tokens."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    tiles = images[:, :gh * patch, :gw * patch].reshape(
+        b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, gh * gw, patch * patch * c)
+    tok = torch.matmul(tiles, wflat)
+    return tok if bias is None else tok + bias
 
 
 def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:

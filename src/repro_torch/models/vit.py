@@ -16,13 +16,13 @@ import torch.nn.functional as F
 from repro_torch.models.attention import gqa_attention, gqa_init
 from repro_torch.models.layers import (
     Params,
-    conv2d,
     conv_init,
     layernorm,
     layernorm_init,
     linear,
     linear_init,
     mlp,
+    patch_embed,
     trunc_normal,
 )
 
@@ -100,10 +100,13 @@ def _interp_pos_embed(pos: torch.Tensor, n_patches: int) -> torch.Tensor:
 def vit_embed(params: Params, images: torch.Tensor, *,
               patch: int) -> torch.Tensor:
     """images [B, H, W, 3] -> patch-embedding tokens [B, P, D] (no CLS):
-    the conv patch-embed that crop_patchify fuses on the main path."""
-    x = conv2d(params["patch_embed"], images.float(), stride=patch,
-               padding="VALID")                          # [B, h, w, D]
-    return x.reshape(images.shape[0], -1, x.shape[-1])
+    the conv patch-embed that crop_patchify fuses on the main path,
+    computed as the plain crop -> token stage computes it
+    (layers.patch_embed)."""
+    pe = params["patch_embed"]
+    w = pe["w"]
+    return patch_embed(images.float(), w.reshape(-1, w.shape[-1]),
+                       pe.get("b"), patch=patch)
 
 
 def vit_encode_tokens(params: Params, x: torch.Tensor, *, n_heads: int,

@@ -139,6 +139,30 @@ def test_port_init_has_reference_layout(weights):
     assert jax.tree.map(lambda x: tuple(x.shape), fresh) == shapes
 
 
+def test_numpy_generator_init(weights):
+    """detector_init from a numpy Generator: the reference's layout, the
+    same weights from the same seed (numpy's draws, not PyTorch's), each
+    weight a truncated normal within 2 std (the patch embed's std is
+    sqrt(2 / fan_in)), the first leaf the documented draw."""
+    _, tp = weights
+    a = tdet.detector_init(np.random.default_rng(7), MADEYE_APPROX_SMOKE)
+    b = tdet.detector_init(np.random.default_rng(7), MADEYE_APPROX_SMOKE)
+    assert jax.tree.map(lambda x: tuple(x.shape), a) == jax.tree.map(
+        lambda x: tuple(x.shape), tp)
+    for u, v in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+        assert u.dtype == torch.float32
+        assert torch.equal(u, v)
+    w = a["backbone"]["vit"]["patch_embed"]["w"]
+    std = float(np.sqrt(2.0 / (w.shape[0] * w.shape[1] * w.shape[2])))
+    assert float(w.abs().max()) <= 2.0 * std * (1 + 1e-6)
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal(tuple(w.shape))
+    while (np.abs(z) > 2.0).any():
+        out = np.abs(z) > 2.0
+        z[out] = rng.standard_normal(int(out.sum()))
+    np.testing.assert_array_equal(w.numpy(), (z * std).astype(np.float32))
+
+
 def test_pos_embed_mismatch_raises(weights):
     """Tokens that form no square grid raise; a square grid of another
     size resizes pos_embed (held against JAX in test_torch_attention)."""

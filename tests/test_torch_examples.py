@@ -1,0 +1,55 @@
+"""The port's examples (`python -m repro_torch.examples.<name>`) run end
+to end as subprocesses on the CPU, with the REPRO_EX_* overrides of
+tests/test_examples_smoke.py, and reach the reference examples' result
+lines; without a card and without `--device cpu` they refuse to run."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+EXAMPLES = [
+    ("adaptive_serving",
+     {"REPRO_EX_DURATION": "2.0", "REPRO_EX_STEPS": "3"},
+     "NN-in-the-loop MadEye accuracy"),
+    ("continual_distillation",
+     {"REPRO_EX_DURATION": "2.0", "REPRO_EX_EVALS": "4"},
+     "replay: rank quality"),
+    ("fleet_experiment",
+     {"REPRO_EX_CAMERAS": "2", "REPRO_EX_STEPS": "3"},
+     "fleet accuracy"),
+]
+
+
+def _run(args, env_overrides):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    env.update(env_overrides)
+    return subprocess.run([sys.executable, "-m", *args], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("name,overrides,marker", EXAMPLES,
+                         ids=[e[0] for e in EXAMPLES])
+def test_example_runs_on_cpu(name, overrides, marker):
+    proc = _run([f"repro_torch.examples.{name}", "--device", "cpu"],
+                overrides)
+    assert proc.returncode == 0, \
+        f"{name} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}"
+    assert marker in proc.stdout, \
+        f"{name} did not reach its result line:\n{proc.stdout[-2000:]}"
+
+
+def test_example_needs_a_card_unless_told_cpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = _run(["repro_torch.examples.fleet_experiment"],
+                {"REPRO_EX_CAMERAS": "1", "REPRO_EX_STEPS": "1"})
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr

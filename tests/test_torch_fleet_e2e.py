@@ -90,16 +90,13 @@ def test_result_json_round_trip():
 
 
 def test_unported_options_raise():
-    """Sharding and the unfused detector path (fused=False) are not
-    ported; metrics and distillation are (tests/test_torch_learn.py), the
-    tables provider too (tests/test_torch_tables.py), and distillation on
-    a provider without a per-window model is refused as in the
-    reference."""
-    for spec in (TSpec(shard={"kind": "debug"}),
-                 TSpec(provider="detector", n_cameras=1, n_steps=1,
-                       provider_kwargs={"fused": False})):
-        with pytest.raises((NotImplementedError, KeyError)):
-            t_run_fleet(spec, device="cpu")
+    """Sharding is not ported; metrics and distillation are
+    (tests/test_torch_learn.py), the tables provider too
+    (tests/test_torch_tables.py), the unfused detector path too
+    (tests/test_torch_unfused.py), and distillation on a provider
+    without a per-window model is refused as in the reference."""
+    with pytest.raises((NotImplementedError, KeyError)):
+        t_run_fleet(TSpec(shard={"kind": "debug"}), device="cpu")
     with pytest.raises(TypeError):
         t_run_fleet(TSpec(n_cameras=1, n_steps=1,
                           distill={"enabled": True}), device="cpu")
