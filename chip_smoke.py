@@ -103,6 +103,30 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      images); three host finetune_step calls card vs CPU (loss within
      1e-4 relative, backbone bit-unchanged); and the three
      `python -m repro_torch.examples.*` as subprocesses on the card;
+  8d. drive the LM half of the model zoo (PR 20), counters set to 0
+     just before and read just after each call: stablelm-3b at full
+     width and depth in float32 (4 requests of 2048 prompt tokens + 16
+     continuation tokens): lm_forward with impl="flash" (flash_attention
+     once per layer, 32, and no other kernel) and impl="xla", gqa_prefill
+     over the prompts and 16 teacher-forced gqa_decode_steps (no kernel);
+     flash vs xla and prefill vs forward within the flash kernel's float32
+     tolerance scaled to the logits, each decode step vs the forward's
+     position within the bf16 cache's tolerance, argmax equal wherever
+     the top-2 margin is clear; then the same weights in bf16, timed
+     (prefill last_only, decode ms a step and tokens/s at batch 4, the
+     forward with flash and xla, peak memory) and the flash kernel at
+     [4, 2064, 32, 80] causal bf16 beside its bound and SDPA; deepseek-v3
+     at full width, depth cut to 4 layers (3 dense + 1 MoE), bf16, 2 x
+     512 tokens: moe_lm_forward with flash (4 launches, MLA heads of 192
+     with v padded) and xla with room in every expert, mla_prefill
+     against the forward over the same prompt as configured and 8
+     mla_decode_steps against the roomy forward (each on the tokens the
+     MoE layer treated alike in both runs, the same experts and the same
+     of them kept: max abs error, argmax at clear margins), dropped_frac, the MoE layer's ms, peak memory, the flash
+     kernel at [2, 512, 128, 192] causal bf16; and the four
+     SMOKE configs on the card and on the CPU (weights drawn by numpy):
+     forward, prefill and decode logits within stated tolerances, router
+     ids and the dispatch plan equal but at a near tie;
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -111,7 +135,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
  10. print one JSON line describing every kernel (its launches on the
      detector main path; with `serve_launches` its launches on each
      path of phase 8b, for the search kernels `tables_graph_ms`,
-     and with `slice_launches` its launches on each path of phase 8c),
+     with `slice_launches` its launches on each path of phase 8c, and
+     for flash_attention `lm_launches` and `lm_rows` from phase 8d),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
@@ -139,7 +164,11 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    LM_ARCHS,
+    get_config,
+    get_smoke_config,
+)
 from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
 from repro_torch.core.tradeoff import BudgetConfig  # noqa: E402
 from repro_torch.data import SceneConfig, build_video  # noqa: E402
@@ -217,6 +246,24 @@ from repro_torch.learn.spec import DistillSpec  # noqa: E402
 from repro_torch.core import continual  # noqa: E402
 from repro_torch.core.distill import teacher_labels  # noqa: E402
 from repro_torch.models import detector as detector_module  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.kvcache import (  # noqa: E402
+    gqa_decode_step,
+    gqa_prefill,
+    init_gqa_cache,
+    init_mla_cache,
+    mla_decode_step,
+    mla_prefill,
+    moe_gqa_decode_step,
+    moe_gqa_prefill,
+)
+from repro_torch.models.layers import (  # noqa: E402
+    cast_floats,
+    count_params,
+    layer_params,
+)
+from repro_torch.models.moe_lm import moe_lm_forward, moe_lm_init  # noqa: E402
+from repro_torch.models.transformer import lm_forward, lm_init  # noqa: E402
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
     detector_init,
@@ -260,7 +307,7 @@ from repro_torch.serving.engine import (  # noqa: E402
     InferenceEngine,
     run_fleet_detector_controller,
 )
-from repro_torch.train.optim import tree_leaves  # noqa: E402
+from repro_torch.train.optim import tree_leaves, tree_map  # noqa: E402
 
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
@@ -327,6 +374,32 @@ EXAMPLES = (
                                 "REPRO_EX_EVALS": "4"},
      "replay: rank quality"),
 )
+# the LM half of the model zoo (PR 20): stablelm-3b at full width and
+# depth (src/repro/configs/stablelm_3b.py:8), 4 requests of 2048 prompt
+# tokens and 16 continuation tokens; deepseek-v3 at full width
+# (src/repro/configs/deepseek_v3_671b.py:8), depth cut to its 3 dense
+# layers and 1 MoE layer (the 61-layer model does not fit one card),
+# 2 x 512 tokens, the last 8 decoded; weights from seeded CUDA
+# generators (compared only with other runs on the card)
+LM_DENSE_ARCH, LM_BATCH, LM_PROMPT, LM_CONT = "stablelm-3b", 4, 2048, 16
+LM_MOE_ARCH, LM_MOE_LAYERS = "deepseek-v3-671b", 4
+LM_MOE_BATCH, LM_MOE_SEQ, LM_MOE_DECODE = 2, 512, 8
+LM_SEED = 0
+LM_SMALL_PROMPT = 8     # smoke configs: 8 prompt tokens, 4 decoded
+# float32 flash vs xla (and prefill vs forward): the flash kernel's
+# stated float32 tolerance, 3e-5 on outputs of order 1, scaled to the
+# logits' largest magnitude
+LM_F32_REL = 3e-5
+# decode of a float32 model from its bf16 cache vs the forward: the
+# reference's own tolerance for that comparison
+# (tests/test_models_smoke.py:68-77)
+LM_DECODE_TOL = 2e-2
+# bf16 logits of magnitude 2-4 (bf16 spacing 2^-7 to 2^-6) from two
+# formulations, each rounding every op: a handful of ulps through 4
+# layers and a 7168-long head product, at most ~16 ulps
+LM_BF16_ABS = 0.25
+LM_SMALL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LM_TIE_GAP = 1e-6
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -2246,6 +2319,407 @@ def learn_stages(dspec, prep, sc1, dp, kinds, noise, st, st2, out, timed):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# phase 8d: the LM half of the model zoo (PR 20)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def exact_bf16():
+    """bf16 products reduce in float32 inside the block (cuBLAS may
+    otherwise reduce in bf16), so card-vs-card and card-vs-CPU
+    comparisons see only the rounding the model asks for."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            saved
+
+
+def counted(fn):
+    """(fn(), the kernels it launched {name: n}): the counters set to 0
+    just before, read just after."""
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _lib.launch_counts().items() if v}
+
+
+def expect_launches(got: dict, want: dict, label: str) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def near_tie_argmax(got, want, margin: float) -> tuple[int, int]:
+    """(positions where want's top-2 logits are more than `margin` apart,
+    those of them whose argmax differs)."""
+    top2 = want.float().topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > margin
+    differ = got.float().argmax(-1) != want.float().argmax(-1)
+    return int(sure.sum()), int((sure & differ).sum())
+
+
+def rel_rms(got, want) -> float:
+    d = (got.float() - want.float()).square().mean().sqrt()
+    return float(d / want.float().square().mean().sqrt())
+
+
+def lm_dense_f32(dev) -> tuple[dict, dict]:
+    """stablelm-3b at full width and depth in float32: lm_forward with
+    impl="flash" and "xla" over LM_BATCH x (LM_PROMPT + LM_CONT) tokens,
+    gqa_prefill over the prompts, LM_CONT teacher-forced decode steps;
+    counters from 0 around each call. Returns (launches by path, the
+    float32 weights)."""
+    cfg = dataclasses.replace(get_config(LM_DENSE_ARCH), dtype=torch.float32)
+    n, p = LM_PROMPT + LM_CONT, LM_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = lm_init(gen, cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, n), generator=gen,
+                         device=dev)
+    launches = {}
+    fl, c = counted(lambda: lm_forward(params, cfg, toks, impl="flash"))
+    expect_launches(c, {"flash_attention": cfg.n_layers}, "flash forward")
+    launches["stablelm-3b f32 forward flash"] = c.get("flash_attention", 0)
+    xl, c = counted(lambda: lm_forward(params, cfg, toks, impl="xla"))
+    expect_launches(c, {}, "xla forward")
+    scale = float(xl.abs().max())
+    tol = LM_F32_REL * scale
+    err_fx = float((fl - xl).abs().max())
+    sure, flips = near_tie_argmax(fl, xl, tol)
+    del fl
+    (pl, cache), c = counted(lambda: gqa_prefill(params, cfg, toks[:, :p],
+                                                 max_seq=n))
+    expect_launches(c, {}, "gqa_prefill")
+    err_px = float((pl - xl[:, :p]).abs().max())
+    del pl
+    dec_err, dec_rel, dec_sure, dec_flips = [], [], 0, 0
+    for i in range(p, n):
+        (dl, cache), c = counted(lambda: gqa_decode_step(
+            params, cfg, toks[:, i:i + 1], cache))
+        expect_launches(c, {}, f"gqa_decode_step {i}")
+        dec_err.append(float((dl[:, 0] - xl[:, i]).abs().max()))
+        dec_rel.append(rel_rms(dl[:, 0], xl[:, i]))
+        s, f = near_tie_argmax(dl[:, 0], xl[:, i], LM_DECODE_TOL)
+        dec_sure, dec_flips = dec_sure + s, dec_flips + f
+    print(f"lm stablelm-3b f32 [{LM_BATCH} x {n}]: launches flash="
+          f"{cfg.n_layers} xla/prefill/decode=0; |logits| max {scale:.3f}; "
+          f"flash vs xla max_abs_err={err_fx:.3e} (tol {tol:.3e}), argmax "
+          f"differs at {flips} of {sure} clear positions; prefill vs "
+          f"forward {err_px:.3e}; decode vs forward max_abs_err "
+          f"{max(dec_err):.3e} (tol {LM_DECODE_TOL}), rel rms "
+          f"{max(dec_rel):.3e}, argmax differs at {dec_flips} of {dec_sure} "
+          f"clear positions; per step {[f'{e:.2e}' for e in dec_err]}",
+          flush=True)
+    if err_fx > tol or err_px > tol or flips:
+        raise AssertionError("stablelm-3b f32: flash or prefill vs forward "
+                             "out of tolerance")
+    if max(dec_err) > LM_DECODE_TOL or dec_flips:
+        raise AssertionError("stablelm-3b f32: decode vs forward out of "
+                             "tolerance")
+    launches["stablelm-3b f32 forward xla, prefill, decode"] = 0
+    return launches, params
+
+
+def lm_dense_bf16(dev, params) -> dict:
+    """stablelm-3b at its published bf16 (the float32 run's weights
+    cast), timed: prefill (last_only), LM_CONT decode steps at batch
+    LM_BATCH, the forward with flash and xla; peak memory."""
+    cfg = get_config(LM_DENSE_ARCH)
+    n, p = LM_PROMPT + LM_CONT, LM_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, n), generator=gen,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(lambda: gqa_prefill(params, cfg, toks[:, :p],
+                                             max_seq=n, last_only=True), 3)
+    _, cache = gqa_prefill(params, cfg, toks[:, :p], max_seq=n,
+                           last_only=True)
+
+    def decode_all():
+        c = cache
+        for i in range(p, n):
+            _, c = gqa_decode_step(params, cfg, toks[:, i:i + 1], c)
+
+    decode_ms = cuda_ms(decode_all, 2) / LM_CONT
+    fwd_ms = {impl: cuda_ms(lambda: lm_forward(params, cfg, toks, impl=impl),
+                            2) for impl in ("flash", "xla")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": LM_BATCH * 1e3 / decode_ms,
+           "forward_flash_ms": fwd_ms["flash"], "forward_xla_ms": fwd_ms["xla"],
+           "peak_gib": peak}
+    print(f"lm stablelm-3b bf16: prefill [{LM_BATCH} x {p}] last_only "
+          f"{prefill_ms:.2f} ms; decode {decode_ms:.2f} ms a step at batch "
+          f"{LM_BATCH} ({row['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{LM_CONT} steps from {p}); forward [{LM_BATCH} x {n}] flash "
+          f"{fwd_ms['flash']:.2f} ms, xla {fwd_ms['xla']:.2f} ms; peak "
+          f"{peak:.2f} GiB", flush=True)
+    return row
+
+
+class MoERecorder(CallRecorder):
+    """While active, keeps (layer params, input clone, MoEMetrics) of
+    every moe_ffn call (the name moe_lm and kvcache look up)."""
+
+    def __init__(self):
+        super().__init__(moe_module, "moe_ffn",
+                         lambda a, k, out: (a[0], a[1].clone(), a[2],
+                                            out[1]))
+
+
+def _treated(call, capacity_factor: float) -> torch.Tensor:
+    """How one recorded moe_ffn call treated each token, recomputed from
+    its input: its (expert, kept) pairs, sorted [T, K] (as 2 * expert +
+    kept)."""
+    p, x, cfg, _ = call
+    ids = moe_module.router_topk(p["router"]["w"], x.reshape(-1, x.shape[-1]),
+                                 cfg.moe_top_k)[1]
+    c = moe_module.capacity(ids.shape[0], cfg, capacity_factor)
+    order, _, _, keep = moe_module.moe_dispatch(ids, c)
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    return (2 * ids + kept.reshape(ids.shape)).sort(-1).values
+
+
+def _alike(a, b) -> torch.Tensor:
+    """Tokens the MoE layer treated alike in two runs: the same experts,
+    the same of them kept."""
+    return (a == b).all(-1)
+
+
+def _bf16_compare(got, want, alike, label: str) -> dict:
+    """max |got - want| over the tokens treated alike ([B, S] mask) and
+    the argmax there wherever want's top-2 margin exceeds LM_BF16_ABS."""
+    g, w = got.float()[alike], want.float()[alike]
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    sure, flips = near_tie_argmax(g, w, LM_BF16_ABS)
+    if err > LM_BF16_ABS or flips:
+        raise AssertionError(f"deepseek-v3 bf16 {label}: max_abs_err "
+                             f"{err:.3e} (tol {LM_BF16_ABS}), argmax "
+                             f"differs at {flips} of {sure}")
+    return {"tokens": int(alike.sum()), "of": alike.numel(),
+            "max_abs_err": err, "rel_rms": rel_rms(g, w),
+            "argmax_checked": sure}
+
+
+def lm_moe_bf16(dev) -> dict:
+    """deepseek-v3 at full width, depth cut to LM_MOE_LAYERS (its first
+    3 dense layers and 1 MoE layer), bf16, LM_MOE_BATCH x LM_MOE_SEQ
+    tokens, the last LM_MOE_DECODE decoded. The forward over the prompt
+    as configured (capacity factor 1.25) gives dropped_frac and the
+    reference for mla_prefill over the same tokens; the forward with
+    flash (MLA heads of 192, v padded) and xla over all tokens runs at
+    capacity factor E / K, room for every assignment, which is what the
+    decode steps (one token an expert queue, never dropped) are held
+    against. Each comparison covers the tokens the MoE layer treated
+    alike in both runs, the same experts and the same of them kept (a
+    near tie at the top-8 boundary sends a token elsewhere). Also the
+    MoE layer's ms and peak memory."""
+    cfg = dataclasses.replace(get_config(LM_MOE_ARCH),
+                              n_layers=LM_MOE_LAYERS)
+    n, p = LM_MOE_SEQ, LM_MOE_SEQ - LM_MOE_DECODE
+    no_drop = cfg.moe_experts / cfg.moe_top_k
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    params = moe_lm_init(gen, cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab, (LM_MOE_BATCH, n), generator=gen,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, out = {}, {}
+    with exact_bf16():
+        with MoERecorder() as rc:
+            (cl, _), c = counted(lambda: moe_lm_forward(params, cfg,
+                                                        toks[:, :p]))
+        expect_launches(c, {}, "moe xla forward")
+        with MoERecorder() as rf:
+            (fl, _), c = counted(lambda: moe_lm_forward(
+                params, cfg, toks, impl="flash", capacity_factor=no_drop))
+        expect_launches(c, {"flash_attention": cfg.n_layers}, "moe flash")
+        launches["deepseek-v3 bf16 forward flash"] = c.get("flash_attention", 0)
+        with MoERecorder() as rx:
+            (xl, _), c = counted(lambda: moe_lm_forward(
+                params, cfg, toks, capacity_factor=no_drop))
+        expect_launches(c, {}, "moe xla forward")
+        shape = (LM_MOE_BATCH, n)
+        tx = _treated(rx.calls[0], no_drop)
+        out["flash vs xla"] = _bf16_compare(
+            fl, xl, _alike(_treated(rf.calls[0], no_drop), tx).reshape(
+                shape), "flash vs xla")
+        del fl
+        with MoERecorder() as rp:
+            (pl, cache), c = counted(lambda: mla_prefill(
+                params, cfg, toks[:, :p], max_seq=n))
+        expect_launches(c, {}, "mla_prefill")
+        out["prefill vs forward"] = _bf16_compare(
+            pl, cl, _alike(_treated(rp.calls[0], 1.25),
+                           _treated(rc.calls[0], 1.25)).reshape(
+                LM_MOE_BATCH, p), "prefill vs forward")
+        del pl
+        dec, dec_alike = [], []
+        tx_pos = tx.reshape(LM_MOE_BATCH, n, -1)
+        for i in range(p, n):
+            with MoERecorder() as rd:
+                (dl, cache), c = counted(lambda: mla_decode_step(
+                    params, cfg, toks[:, i:i + 1], cache))
+            expect_launches(c, {}, f"mla_decode_step {i}")
+            dec.append(dl[:, 0])
+            dec_alike.append(_alike(_treated(rd.calls[0], 1.25),
+                                    tx_pos[:, i]))
+        out["decode vs forward"] = _bf16_compare(
+            torch.stack(dec, 1), xl[:, p:], torch.stack(dec_alike, 1),
+            "decode vs forward")
+    dropped = float(rc.calls[0][3].dropped_frac)
+    lp, x_moe = rc.calls[0][0], rc.calls[0][1]
+    moe_ms = cuda_ms(lambda: moe_module.moe_ffn(lp, x_moe, cfg), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = count_params(params)
+    print(f"lm deepseek-v3 bf16 (depth cut to {cfg.n_layers}: "
+          f"{cfg.first_dense_layers} dense + "
+          f"{cfg.n_layers - cfg.first_dense_layers} MoE, "
+          f"{n_params / 1e9:.2f}B parameters) [{LM_MOE_BATCH} x {n}]: "
+          f"launches flash={cfg.n_layers} xla/prefill/decode=0; "
+          + "; ".join(f"{k} on {v['tokens']} of {v['of']} tokens treated "
+                      f"alike: max_abs_err {v['max_abs_err']:.3e} rel rms "
+                      f"{v['rel_rms']:.3e}, argmax equal at "
+                      f"{v['argmax_checked']} clear positions"
+                      for k, v in out.items())
+          + f" (tol {LM_BF16_ABS}); dropped_frac at capacity factor 1.25 "
+          f"over {LM_MOE_BATCH} x {p} tokens {dropped:.4f}; MoE layer "
+          f"{moe_ms:.3f} ms; peak {peak:.2f} GiB",
+          flush=True)
+    launches["deepseek-v3 bf16 forward xla, prefill, decode"] = 0
+    del params, cache, xl, cl
+    return {"launches": launches, "dropped_frac": dropped,
+            "moe_layer_ms": moe_ms, "peak_gib": peak, "compare": out}
+
+
+def _lm_fns(cfg):
+    """(forward -> logits, prefill, decode step) of an LM config."""
+    if cfg.mla:
+        return (lambda p, t: moe_lm_forward(p, cfg, t)[0], mla_prefill,
+                mla_decode_step)
+    if cfg.moe_experts is not None:
+        return (lambda p, t: moe_lm_forward(p, cfg, t)[0], moe_gqa_prefill,
+                moe_gqa_decode_step)
+    return (lambda p, t: lm_forward(p, cfg, t), gqa_prefill,
+            gqa_decode_step)
+
+
+def _lm_run(cfg, params, toks):
+    """Forward, prefill and decode logits of a smoke config: a float32
+    model decodes every token from an empty float32 cache (no bf16
+    rounding of k/v, which two devices may round to neighbouring bf16
+    values), a bf16 model from its prefill's cache."""
+    fwd, pre, dec = _lm_fns(cfg)
+    out = [fwd(params, toks)]
+    logits, cache = pre(params, cfg, toks[:, :LM_SMALL_PROMPT],
+                        max_seq=toks.shape[1])
+    out.append(logits)
+    start = LM_SMALL_PROMPT
+    if cfg.dtype == torch.float32:
+        init = init_mla_cache if cfg.mla else init_gqa_cache
+        cache = init(cfg, toks.shape[0], toks.shape[1], dtype=torch.float32,
+                     device=toks.device)
+        start = 0
+    for i in range(start, toks.shape[1]):
+        logits, cache = dec(params, cfg, toks[:, i:i + 1], cache)
+        out.append(logits)
+    return out
+
+
+def lm_small_parity(dev) -> None:
+    """The four SMOKE configs on the card and on the CPU, weights drawn
+    by numpy (the same under any PyTorch): forward, prefill and decode
+    logits within LM_SMALL_TOL; the MoE router's ids on one input, and
+    the dispatch plan, equal but at a near tie."""
+    worst = {}
+    with torch.no_grad(), exact_bf16():
+        for arch in LM_ARCHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = dataclasses.replace(get_smoke_config(arch),
+                                          dtype=dtype)
+                init = moe_lm_init if cfg.moe_experts else lm_init
+                cpu_p = init(np.random.default_rng(0), cfg, device="cpu")
+                toks = torch.as_tensor(np.random.default_rng(1).integers(
+                    0, cfg.vocab, (2, LM_SMALL_PROMPT + 4)))
+                want = _lm_run(cfg, cpu_p, toks)
+                got = _lm_run(cfg, tree_map(lambda t: t.to(dev), cpu_p),
+                              toks.to(dev))
+                err = max(float((g.cpu().float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+                tol = LM_SMALL_TOL[dtype]
+                worst[f"{arch} {str(dtype)[6:]}"] = err
+                if err > tol:
+                    raise AssertionError(f"lm {arch} {dtype}: card vs CPU "
+                                         f"{err:.3e} > {tol}")
+                if cfg.moe_experts and dtype == torch.float32:
+                    _router_parity(cfg, cpu_p, dev)
+    print("lm small input, card vs CPU (max abs err of forward, prefill "
+          "and decode logits): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; routing equal but at near ties (gap < {LM_TIE_GAP})",
+          flush=True)
+
+
+def _router_parity(cfg, cpu_p, dev) -> None:
+    """The first MoE layer's router and dispatch plan on one float32
+    input [2, 16, D], card vs CPU: ids equal but at a near tie (top-k
+    boundary gap under LM_TIE_GAP), then order, positions and keep
+    equal."""
+    lp = layer_params(cpu_p["moe_layers"], 0)["moe"]
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        0, 1, (32, cfg.d_model)).astype(np.float32))
+    k = cfg.moe_top_k
+    _, ids_c, probs = moe_module.router_topk(lp["router"]["w"], x, k)
+    _, ids_g, _ = moe_module.router_topk(lp["router"]["w"].to(dev),
+                                         x.to(dev), k)
+    srt = probs.sort(-1, descending=True).values
+    gap = (srt[:, :k] - srt[:, 1:k + 1]).min(-1).values
+    differ = (ids_g.cpu() != ids_c).any(-1)
+    if bool((differ & (gap >= LM_TIE_GAP)).any()):
+        raise AssertionError(f"{cfg.name}: router ids differ away from a "
+                             f"near tie")
+    c = moe_module.capacity(x.shape[0], cfg, 0.5)
+    plan_c = moe_module.moe_dispatch(ids_c, c)
+    plan_g = moe_module.moe_dispatch(ids_c.to(dev), c)
+    for a, b in zip(plan_c, plan_g):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"{cfg.name}: dispatch plan differs")
+
+
+def lm_phase(dev) -> dict:
+    """Phase 8d. Returns the flash_attention launches by LM path, the
+    timings, and the two LM flash rows."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        launches, params = lm_dense_f32(dev)
+        params = cast_floats(params, torch.bfloat16)
+        torch.cuda.empty_cache()
+        dense = lm_dense_bf16(dev, params)
+        del params
+        torch.cuda.empty_cache()
+        flash_dense = flash_case(dev, LM_BATCH, LM_PROMPT + LM_CONT,
+                                 LM_PROMPT + LM_CONT, 32, 32, 80,
+                                 causal=True, dtype=torch.bfloat16,
+                                 library=True)
+        moe = lm_moe_bf16(dev)
+        torch.cuda.empty_cache()
+        flash_moe = flash_case(dev, LM_MOE_BATCH, LM_MOE_SEQ, LM_MOE_SEQ,
+                               128, 128, 192, causal=True,
+                               dtype=torch.bfloat16, library=True)
+    launches.update(moe["launches"])
+    lm_small_parity(dev)
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "dense": dense, "moe": moe,
+            "rows": {"[4, 2064, 32, 80] causal bf16 (stablelm-3b)":
+                     flash_dense,
+                     "[2, 512, 128, 192] causal bf16 (deepseek-v3 MLA)":
+                     flash_moe}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2311,6 +2785,8 @@ def main() -> int:
         counts[name] = api_counts[name]
     beyond_limits_phase(dev)
     served = serve_phase(dev)
+    torch.cuda.empty_cache()
+    lm = lm_phase(dev)
     stage_phase(spec, DistillSpec())
 
     kernels = []
@@ -2327,6 +2803,15 @@ def main() -> int:
                            if name in rr}
         slice_launches = {label: c[name] for label, c in slice_paths.items()
                           if name in MAIN_PATH_KERNELS}
+        # flash_attention inside the LMs (phase 8d): its launches on each
+        # LM path and its rows at the two models' shapes
+        lm_extra = {} if name != "flash_attention" else {
+            "lm_launches": lm["launches"],
+            "lm_rows": {label: {
+                "max_abs_err": rr["max_abs_err"], "ms": rr["ms"],
+                "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
+                "bound_by": rr["bound"][1], "library_ms": rr["library_ms"]}
+                for label, rr in lm["rows"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
@@ -2339,7 +2824,8 @@ def main() -> int:
             **({"tables_graph_ms": tables_graph_ms}
                if tables_graph_ms else {}),
             **({"slice_launches": slice_launches}
-               if slice_launches else {})})
+               if slice_launches else {}),
+            **lm_extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

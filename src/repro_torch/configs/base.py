@@ -1,0 +1,124 @@
+"""Config dataclasses and the registry of architectures.
+
+Every architecture module in this package registers its FULL config
+(the published numbers) and a SMOKE config (the same family at tiny
+widths, what the CPU tests run). The fields, defaults and numbers are
+the JAX package's; `dtype` is a torch dtype here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A decoder-only LM: dense (StableLM) or MoE with MLA or GQA
+    attention (DeepSeek-V3, Kimi-K2)."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    max_seq: int = 8192
+    rope_theta: float = 10000.0
+    # MoE (None => dense)
+    moe_experts: Optional[int] = None
+    moe_top_k: int = 8
+    moe_shared_experts: int = 0
+    moe_d_ff: Optional[int] = None          # per-expert hidden dim
+    first_dense_layers: int = 0     # e.g. deepseek: first k layers dense
+    # MLA (False => GQA)
+    mla: bool = False
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # numerics
+    dtype: Any = torch.bfloat16
+    # the reference's activation rematerialization in training; the
+    # port's forward-only paths do not read it
+    remat: bool = True
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def family(self) -> str:
+        return "lm"
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """Light ViT backbone + anchor-free detection heads; float32."""
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    n_classes: int = 2               # {person, car}
+    max_boxes: int = 32              # static box budget per frame
+    fpn_dim: int = 128
+
+    @property
+    def family(self) -> str:
+        return "detector"
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell for an architecture family."""
+    name: str
+    kind: str         # train | prefill | decode | generate | serve
+    seq_len: int = 0
+    global_batch: int = 0
+    img_res: int = 0
+    steps: int = 0
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, Any] = {}
+_SMOKE: dict[str, Any] = {}
+
+
+def register(cfg, smoke=None):
+    _REGISTRY[cfg.name] = cfg
+    if smoke is not None:
+        _SMOKE[cfg.name] = smoke
+    return cfg
+
+
+def _load_all() -> None:
+    import repro_torch.configs  # noqa: F401  (registers every module)
+
+
+def get_config(name: str):
+    """Full-width config by name."""
+    if name not in _REGISTRY:
+        _load_all()
+    return _REGISTRY[name]
+
+
+def get_smoke_config(name: str):
+    """Same family at smoke widths (what the CPU tests run)."""
+    if name not in _SMOKE:
+        _load_all()
+    return _SMOKE[name]
+
+
+def list_archs() -> list[str]:
+    _load_all()
+    return sorted(_REGISTRY)

@@ -48,6 +48,7 @@ from repro_torch.core.rank import Workload
 from repro_torch.core.tradeoff import BudgetConfig
 from repro_torch.core.transport import ar1_mobile_trace
 from repro_torch.data import SceneConfig, build_video
+from repro_torch.devices import resolve_device
 from repro_torch.fleet.state import (
     FleetConfig,
     FleetState,
@@ -454,17 +455,6 @@ def _scatter_dets(dets, widx, c: int):
 # ---------------------------------------------------------------------------
 # provider construction (the registry factories — fleet.api)
 # ---------------------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """`device` or the CUDA card; raises when no card is present and the
-    caller did not ask for the CPU (never falls back)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
-    return dev
-
 
 def build_episode_tables(video, workload: Workload, tables: dict,
                          budget: BudgetConfig, trace, *,

@@ -1,4 +1,5 @@
-"""Attention: multi-head and grouped-query (GQA) blocks, RoPE, and the
+"""Attention: multi-head and grouped-query (GQA) blocks, multi-head
+latent attention (MLA, DeepSeek-V2/V3), RoPE, and the
 scaled-dot-product core behind one `impl` switch:
 
   - "xla":   plain PyTorch products with float32 logits (the reference
@@ -8,7 +9,8 @@ scaled-dot-product core behind one `impl` switch:
              on the card, its plain version on the CPU).
 
 Shapes follow [batch, seq, heads, head_dim] ("BSHD"); parameters are the
-reference's dictionaries (`wq/wk/wv/wo`, each `w` and optional `b`).
+reference's dictionaries (`wq/wk/wv/wo`, each `w` and optional `b`; MLA's
+`wq_a/q_a_norm/wq_b/wkv_a/kv_a_norm/wkv_b/wo`).
 """
 from __future__ import annotations
 
@@ -17,7 +19,13 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import Params, linear, linear_init
+from repro_torch.models.layers import (
+    Params,
+    linear,
+    linear_init,
+    rmsnorm,
+    rmsnorm_init,
+)
 
 CHUNKED_THRESHOLD = 2048   # query length from which "xla" runs in chunks
 CHUNK = 1024               # query rows per chunk
@@ -108,17 +116,14 @@ def sdpa(q, k, v, *, causal: bool = False, bias=None, q_offset: int = 0,
 
 def gqa_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
              head_dim: int | None = None, *, bias: bool = False,
-             device=None) -> Params:
+             device=None, dtype=torch.float32) -> Params:
     head_dim = head_dim or d_model // n_heads
+    kw = dict(bias=bias, device=device, dtype=dtype)
     return {
-        "wq": linear_init(gen, d_model, n_heads * head_dim, bias=bias,
-                          device=device),
-        "wk": linear_init(gen, d_model, n_kv_heads * head_dim, bias=bias,
-                          device=device),
-        "wv": linear_init(gen, d_model, n_kv_heads * head_dim, bias=bias,
-                          device=device),
-        "wo": linear_init(gen, n_heads * head_dim, d_model, bias=bias,
-                          device=device),
+        "wq": linear_init(gen, d_model, n_heads * head_dim, **kw),
+        "wk": linear_init(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wv": linear_init(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wo": linear_init(gen, n_heads * head_dim, d_model, **kw),
     }
 
 
@@ -130,13 +135,105 @@ def gqa_qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int):
     return q, k, v
 
 
-def gqa_attention(p: Params, x: torch.Tensor, *, n_heads: int,
-                  n_kv_heads: int, angles: torch.Tensor | None = None,
-                  causal: bool = True, impl: str = "xla") -> torch.Tensor:
-    b, s, _ = x.shape
+def gqa_qkv_rope(p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int,
+                 angles: torch.Tensor | None = None):
+    """q, k, v [B, S, H, Dh] with RoPE on q and k (angles for positions
+    0..S-1)."""
+    s = x.shape[1]
     q, k, v = gqa_qkv(p, x, n_heads, n_kv_heads)
     if angles is not None:
         q = apply_rope(q, angles[:s])
         k = apply_rope(k, angles[:s])
+    return q, k, v
+
+
+def gqa_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                  n_kv_heads: int, angles: torch.Tensor | None = None,
+                  causal: bool = True, impl: str = "xla") -> torch.Tensor:
+    b, s, _ = x.shape
+    q, k, v = gqa_qkv_rope(p, x, n_heads, n_kv_heads, angles)
     o = sdpa(q, k, v, causal=causal, impl=impl)
     return linear(p["wo"], o.reshape(b, s, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+# Queries, keys and values are projected through low-rank latents; the
+# KV cache (models/kvcache.py) stores only the compressed latent and a
+# small rope'd key part.
+
+def mla_init(gen, d_model: int, n_heads: int, *, q_lora_rank: int,
+             kv_lora_rank: int, qk_nope_dim: int, qk_rope_dim: int,
+             v_head_dim: int, device=None, dtype=torch.float32) -> Params:
+    qk_head_dim = qk_nope_dim + qk_rope_dim
+    kw = dict(bias=False, device=device, dtype=dtype)
+    return {
+        "wq_a": linear_init(gen, d_model, q_lora_rank, **kw),
+        "q_a_norm": rmsnorm_init(q_lora_rank, device=device, dtype=dtype),
+        "wq_b": linear_init(gen, q_lora_rank, n_heads * qk_head_dim, **kw),
+        "wkv_a": linear_init(gen, d_model, kv_lora_rank + qk_rope_dim,
+                             **kw),
+        "kv_a_norm": rmsnorm_init(kv_lora_rank, device=device,
+                                  dtype=dtype),
+        "wkv_b": linear_init(gen, kv_lora_rank,
+                             n_heads * (qk_nope_dim + v_head_dim), **kw),
+        "wo": linear_init(gen, n_heads * v_head_dim, d_model, **kw),
+    }
+
+
+def mla_project(p: Params, x: torch.Tensor, *, n_heads: int,
+                qk_nope_dim: int, qk_rope_dim: int, v_head_dim: int,
+                kv_lora_rank: int, angles: torch.Tensor | None = None):
+    """x [B, S, D] -> (q, k [B, S, H, nope + rope], v [B, S, H, v_head],
+    kv_lat [B, S, lora], k_rope [B, S, 1, rope]): the latents and the
+    per-head keys and values expanded from them."""
+    b, s, _ = x.shape
+    qk_head_dim = qk_nope_dim + qk_rope_dim
+
+    q_lat = rmsnorm(p["q_a_norm"], linear(p["wq_a"], x))
+    q = linear(p["wq_b"], q_lat).reshape(b, s, n_heads, qk_head_dim)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+
+    kv_a = linear(p["wkv_a"], x)
+    kv_lat = rmsnorm(p["kv_a_norm"], kv_a[..., :kv_lora_rank])
+    k_rope = kv_a[..., kv_lora_rank:].reshape(b, s, 1, qk_rope_dim)
+
+    kv = linear(p["wkv_b"], kv_lat).reshape(b, s, n_heads,
+                                            qk_nope_dim + v_head_dim)
+    k_nope, v = kv[..., :qk_nope_dim], kv[..., qk_nope_dim:]
+
+    if angles is not None:
+        q_rope = apply_rope(q_rope, angles[:s, :qk_rope_dim // 2])
+        k_rope = apply_rope(k_rope, angles[:s, :qk_rope_dim // 2])
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_rope.expand(b, s, n_heads, qk_rope_dim)], dim=-1)
+    return q_full, k_full, v, kv_lat, k_rope
+
+
+def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                  qk_nope_dim: int, qk_rope_dim: int, v_head_dim: int,
+                  kv_lora_rank: int, angles: torch.Tensor | None = None,
+                  causal: bool = True, impl: str = "xla") -> torch.Tensor:
+    """The training / prefill form of MLA, latents expanded to per-head
+    keys and values (the cache form is in kvcache.py). With
+    impl="flash", v is zero-padded to the query/key head width for the
+    kernel (which takes one head width) and the output cut back; as in
+    the reference, every other case runs "xla"."""
+    b, s, _ = x.shape
+    qk_head_dim = qk_nope_dim + qk_rope_dim
+    q, k, v, _, _ = mla_project(
+        p, x, n_heads=n_heads, qk_nope_dim=qk_nope_dim,
+        qk_rope_dim=qk_rope_dim, v_head_dim=v_head_dim,
+        kv_lora_rank=kv_lora_rank, angles=angles)
+    scale = 1.0 / math.sqrt(qk_head_dim)
+    if impl == "flash" and v_head_dim != qk_head_dim:
+        pad = qk_head_dim - v_head_dim
+        v_p = torch.nn.functional.pad(v, (0, max(0, pad)))
+        o = sdpa(q, k, v_p, causal=causal, impl=impl, scale=scale)
+        o = o[..., :v_head_dim]
+    else:
+        o = sdpa(q, k, v, causal=causal, impl="xla", scale=scale)
+    return linear(p["wo"], o.reshape(b, s, n_heads * v_head_dim))

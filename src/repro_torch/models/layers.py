@@ -1,12 +1,14 @@
-"""The layers the ViT detector uses, as plain functions on parameter
+"""The layers of the port's models, as plain functions on parameter
 dictionaries (the JAX package's pytree layout, so one checkpoint serves
-both): linear, layernorm, rmsnorm, the GELU MLP and the NHWC/HWIO
-convolution.
+both): linear, embedding, layernorm, rmsnorm, the GELU and the gated
+(SwiGLU) MLP, the NHWC/HWIO convolution, and the helpers for stacked
+layers and parameter trees.
 
 Numerics follow the reference: layernorm uses the population variance
 and eps = 1e-6 (torch's default is 1e-5); rmsnorm computes in float32
-and returns x's dtype; GELU is the tanh approximation; everything else
-is float32.
+and returns x's dtype; GELU is the tanh approximation; `linear` casts
+its weights to x's dtype. The detector is float32; the LMs run in their
+config's dtype.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
+from repro_torch.train.optim import tree_leaves, tree_map
 
 Params = dict
 
@@ -27,32 +30,63 @@ Params = dict
 # or a numpy Generator)
 # ---------------------------------------------------------------------------
 
-def trunc_normal(gen, shape, std: float = 0.02,
-                 device=None) -> torch.Tensor:
+def trunc_normal(gen, shape, std: float = 0.02, device=None,
+                 dtype=torch.float32) -> torch.Tensor:
     """Truncated normal draw. A torch.Generator goes through
-    torch.nn.init.trunc_normal_, whose draws differ between PyTorch
-    versions; a numpy Generator (np.random.default_rng) gives the same
-    weights under any PyTorch (standard normals, those past +-2 drawn
-    again, times std)."""
+    torch.nn.init.trunc_normal_ on the generator's device, whose draws
+    differ between PyTorch versions; a numpy Generator
+    (np.random.default_rng) gives the same weights under any PyTorch
+    (standard normals, those past +-2 drawn again, times std)."""
     if isinstance(gen, np.random.Generator):
         z = gen.standard_normal(shape)
         out = np.abs(z) > 2.0
         while out.any():
             z[out] = gen.standard_normal(int(out.sum()))
             out = np.abs(z) > 2.0
-        return torch.as_tensor((z * std).astype(np.float32), device=device)
-    x = torch.empty(shape, dtype=torch.float32)
+        return torch.as_tensor((z * std).astype(np.float32),
+                               device=device).to(dtype)
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, std, -2.0 * std, 2.0 * std,
                                 generator=gen)
-    return x.to(device)
+    return x.to(device=device, dtype=dtype)
+
+
+def lecun_normal(gen, shape, device=None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Truncated normal of std sqrt(1 / fan_in), fan_in = shape[0]."""
+    return trunc_normal(gen, shape, std=math.sqrt(1.0 / max(1, shape[0])),
+                        device=device, dtype=dtype)
 
 
 def linear_init(gen, d_in: int, d_out: int, *, bias: bool = True,
-                device=None) -> Params:
-    p = {"w": trunc_normal(gen, (d_in, d_out),
-                           std=math.sqrt(1.0 / max(1, d_in)), device=device)}
+                std: float | None = None, device=None,
+                dtype=torch.float32) -> Params:
+    """{"w": [d_in, d_out], "b": [d_out]}: LeCun normal, or a truncated
+    normal of `std` where given."""
+    w = (trunc_normal(gen, (d_in, d_out), std=std, device=device,
+                      dtype=dtype) if std is not None
+         else lecun_normal(gen, (d_in, d_out), device=device, dtype=dtype))
+    p = {"w": w}
     if bias:
-        p["b"] = torch.zeros(d_out, device=device)
+        p["b"] = torch.zeros(d_out, device=device, dtype=dtype)
+    return p
+
+
+def embedding_init(gen, vocab: int, dim: int, *, device=None,
+                   dtype=torch.float32) -> Params:
+    return {"table": trunc_normal(gen, (vocab, dim), std=0.02,
+                                  device=device, dtype=dtype)}
+
+
+def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = False,
+             bias: bool = True, device=None, dtype=torch.float32) -> Params:
+    """up / down (and gate, for the SwiGLU MLP) linears, drawn in the
+    reference's order."""
+    kw = dict(bias=bias, device=device, dtype=dtype)
+    p = {"up": linear_init(gen, d_model, d_ff, **kw),
+         "down": linear_init(gen, d_ff, d_model, **kw)}
+    if gated:
+        p["gate"] = linear_init(gen, d_model, d_ff, **kw)
     return p
 
 
@@ -65,8 +99,9 @@ def conv_init(gen, k_h: int, k_w: int, c_in: int, c_out: int, *,
             "b": torch.zeros(c_out, device=device)}
 
 
-def rmsnorm_init(dim: int, *, device=None) -> Params:
-    return {"scale": torch.ones(dim, device=device)}
+def rmsnorm_init(dim: int, *, device=None,
+                 dtype=torch.float32) -> Params:
+    return {"scale": torch.ones(dim, device=device, dtype=dtype)}
 
 
 def layernorm_init(dim: int, *, device=None) -> Params:
@@ -97,10 +132,14 @@ def full_float32():
 # ---------------------------------------------------------------------------
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(x.dtype)
     return y
+
+
+def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -118,8 +157,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with the sigmoid as 1 / (1 + exp(-x)), each op
+    rounded in x's dtype: the reference's `jax.nn.silu` as XLA lowers
+    it, so bfloat16 rounds where the reference's does (F.silu rounds
+    once, which puts the LMs' bf16 logits several ulps off)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["down"], gelu(linear(p["up"], x)))
+    """down(act(up(x))): GELU, or SwiGLU (silu(gate(x)) * up(x)) where
+    the parameters hold a gate."""
+    h = linear(p["up"], x)
+    if "gate" in p:
+        h = silu(linear(p["gate"], x)) * h
+    else:
+        h = gelu(h)
+    return linear(p["down"], h)
 
 
 def patch_embed(images: torch.Tensor, wflat: torch.Tensor,
@@ -163,3 +217,40 @@ def conv2d(p: Params, x: torch.Tensor, *, stride: int = 1,
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# stacked layers and parameter trees
+# ---------------------------------------------------------------------------
+
+def stack_trees(trees: list) -> Params:
+    """Equal-structured trees -> one tree whose leaves are stacked on a
+    new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def stack_init(gen, n_layers: int, init_fn) -> Params:
+    """n_layers draws of init_fn(gen), leaves stacked on axis 0 (the
+    reference's scan-over-layers layout)."""
+    return stack_trees([init_fn(gen) for _ in range(n_layers)])
+
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Layer i of a stacked tree (views, no copy)."""
+    return tree_map(lambda x: x[i], stacked)
+
+
+def count_params(params: Params) -> int:
+    return int(sum(p.numel() for p in tree_leaves(params)))
+
+
+def param_bytes(params: Params) -> int:
+    return int(sum(p.numel() * p.element_size()
+                   for p in tree_leaves(params)))
+
+
+def cast_floats(params: Params, dtype) -> Params:
+    return tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p,
+                    params)

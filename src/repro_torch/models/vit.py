@@ -17,12 +17,14 @@ from repro_torch.models.attention import gqa_attention, gqa_init
 from repro_torch.models.layers import (
     Params,
     conv_init,
+    layer_params,
     layernorm,
     layernorm_init,
     linear,
     linear_init,
     mlp,
     patch_embed,
+    stack_init,
     trunc_normal,
 )
 
@@ -42,27 +44,16 @@ def vit_init(gen, *, img_res: int, patch: int, n_layers: int,
                         "down": linear_init(gen, d_ff, d_model,
                                             device=device)}}
 
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
-
     return {
         "patch_embed": conv_init(gen, patch, patch, 3, d_model,
                                  device=device),
         "cls_token": trunc_normal(gen, (1, 1, d_model), device=device),
         "pos_embed": trunc_normal(gen, (1, n_patches + 1, d_model),
                                   device=device),
-        "layers": stack([block() for _ in range(n_layers)]),
+        "layers": stack_init(gen, n_layers, lambda _: block()),
         "final_norm": layernorm_init(d_model, device=device),
         "head": linear_init(gen, d_model, n_classes, device=device),
     }
-
-
-def _layer(layers: Params, i: int) -> Params:
-    if isinstance(layers, dict):
-        return {k: _layer(v, i) for k, v in layers.items()}
-    return layers[i]
 
 
 def vit_block(p: Params, x: torch.Tensor, n_heads: int,
@@ -119,7 +110,7 @@ def vit_encode_tokens(params: Params, x: torch.Tensor, *, n_heads: int,
     x = x + _interp_pos_embed(params["pos_embed"], n_patches).to(x.dtype)
     n_layers = params["layers"]["norm1"]["scale"].shape[0]
     for i in range(n_layers):
-        x = vit_block(_layer(params["layers"], i), x, n_heads, impl)
+        x = vit_block(layer_params(params["layers"], i), x, n_heads, impl)
     return layernorm(params["final_norm"], x)
 
 

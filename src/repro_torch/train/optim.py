@@ -23,17 +23,23 @@ Params = Any
 
 
 def tree_map(fn, tree, *rest):
-    """fn over the leaves of nested dicts (`rest` share tree's keys)."""
+    """fn over the leaves of nested dicts and lists (`rest` share tree's
+    structure; an MoE LM's dense layers are a list)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of nested dicts in sorted-key order."""
+    """Leaves of nested dicts (in sorted-key order) and lists."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
