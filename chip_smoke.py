@@ -127,6 +127,23 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      SMOKE configs on the card and on the CPU (weights drawn by numpy):
      forward, prefill and decode logits within stated tolerances, router
      ids and the dispatch plan equal but at a near tie;
+  8e. drive the vision and diffusion half of the model zoo,
+     counters set to 0 just before and read just after each call:
+     ViT-H/14, ViT-B/16 and ViT-S/16 at full width and depth, float32
+     at batch 8 (vit_forward impl="flash" launches flash_attention once
+     per layer and nothing else, impl="xla" nothing; logits within the
+     flash kernel's float32 tolerance scaled to them), then bf16 at
+     serve_b128 (224 px, batch 128: ms a forward and images/s with each
+     impl); the flash kernel at ViT-H/14's [128, 257, 16, 80] and
+     ViT-B/16's [128, 197, 12, 64] bf16 beside its bound and SDPA;
+     Swin-B at full width and depth, bf16, at serve_b128 and at 384 px
+     (windows 12); DiT-L/2 (a float32 forward against bf16, then
+     dit_sample at gen_fast: 512 px, batch 16, 4 steps, the learned
+     pos_embed resized) and Flux-dev at full depth (rf_sample at
+     gen_fast), ms a step and peak memory, no kernel launched; one
+     full-width block of each family (Swin stage 3, DiT, Flux double
+     and single) and the six SMOKE configs (forward, loss, sampler)
+     on the card and on the CPU within stated tolerances;
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -136,11 +153,13 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      detector main path; with `serve_launches` its launches on each
      path of phase 8b, for the search kernels `tables_graph_ms`,
      with `slice_launches` its launches on each path of phase 8c, and
-     for flash_attention `lm_launches` and `lm_rows` from phase 8d),
+     for flash_attention `lm_launches` and `lm_rows` from phase 8d
+     and `zoo_launches` and `zoo_rows` from phase 8e),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
-Imports torch and the port (src/repro_torch) only.
+Imports torch, the port (src/repro_torch) and tests/torch_zoo_weights.py
+(numpy-drawn zoo weights) only.
 """
 from __future__ import annotations
 
@@ -260,9 +279,17 @@ from repro_torch.models.kvcache import (  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     cast_floats,
     count_params,
+    full_float32,
     layer_params,
+    params_from_numpy,
 )
 from repro_torch.models.moe_lm import moe_lm_forward, moe_lm_init  # noqa: E402
+from repro_torch.models import diffusion as diffusion_module  # noqa: E402
+from repro_torch.models import dit as dit_module  # noqa: E402
+from repro_torch.models import mmdit as mmdit_module  # noqa: E402
+from repro_torch.models import swin as swin_module  # noqa: E402
+from repro_torch.models import vit as vit_module  # noqa: E402
+from repro_torch.scene import prng  # noqa: E402
 from repro_torch.models.transformer import lm_forward, lm_init  # noqa: E402
 from repro_torch.models.detector import (  # noqa: E402
     _decode_detections,
@@ -308,6 +335,15 @@ from repro_torch.serving.engine import (  # noqa: E402
     run_fleet_detector_controller,
 )
 from repro_torch.train.optim import tree_leaves, tree_map  # noqa: E402
+
+# numpy-drawn zoo weights in the reference's layout (tests/, numpy and the
+# port only)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_zoo_weights import (  # noqa: E402
+    numpy_weights,
+    perturb_numpy,
+    smoke_outputs,
+)
 
 # the main path's cell: full-width madeye-approx, one step's shapes
 N_CAMERAS, N_STEPS, SHORTLIST_K = 64, 8, 18
@@ -400,6 +436,31 @@ LM_DECODE_TOL = 2e-2
 LM_BF16_ABS = 0.25
 LM_SMALL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LM_TIE_GAP = 1e-6
+# the vision and diffusion half of the model zoo, full width and
+# depth (src/repro/configs/{vit_h14,vit_b16,vit_s16,swin_b,dit_l2,
+# flux_dev}.py), weights from seeded CUDA generators; the ViTs at
+# serve_b128 (224 px, batch 128) in bf16 with impl="flash" and "xla" and
+# a float32 flash vs xla check at batch 8; Swin-B at serve_b128 and one
+# cls_384 forward (windows 12) at batch 8; DiT-L/2 and Flux-dev sampled at
+# gen_fast (512 px: latent 64, batch 16, 4 steps)
+ZOO_VITS = ("vit-h14", "vit-b16", "vit-s16")
+ZOO_SEED = 0
+ZOO_SERVE_BATCH, ZOO_F32_BATCH, ZOO_384_BATCH = 128, 8, 8
+ZOO_GEN_RES, ZOO_GEN_BATCH, ZOO_GEN_STEPS = 512, 16, 4
+ZOO_DIT_F32_BATCH = 2                # DiT float32 vs bf16 at 256 px
+# zero-initialised adaLN linears and final projections are drawn at this
+# std (a trained model's are not zero; at zero every block is the
+# identity and the output 0)
+ZOO_WAKE_STD = 0.02
+# sanity bounds on two bf16 formulations' relative RMS (ViT flash vs
+# xla logits; DiT-L/2 bf16 vs float32): 24-32 layers of bf16 rounding
+# (2^-9 per op) random-walk to ~1e-2; a wrong path is off by O(1)
+ZOO_BF16_REL_RMS = 0.1
+ZOO_PEAK_GIB = 70.0                  # Flux runs at full depth below this
+# full-width blocks and SMOKE configs, card vs CPU: max |card - CPU| over
+# max(1, max |CPU|) (the CPU tests' tolerances against the reference)
+ZOO_CPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ZOO_BLOCK_TOKENS = 256               # DiT / MMDiT image tokens of the block check
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -2690,6 +2751,15 @@ def _router_parity(cfg, cpu_p, dev) -> None:
             raise AssertionError(f"{cfg.name}: dispatch plan differs")
 
 
+def _row_json(rows: dict) -> dict:
+    """Kernel rows measured at a model's shapes, as the JSON line
+    carries them."""
+    return {label: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+            for label, r in rows.items()}
+
+
 def lm_phase(dev) -> dict:
     """Phase 8d. Returns the flash_attention launches by LM path, the
     timings, and the two LM flash rows."""
@@ -2718,6 +2788,361 @@ def lm_phase(dev) -> dict:
                      flash_dense,
                      "[2, 512, 128, 192] causal bf16 (deepseek-v3 MLA)":
                      flash_moe}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the vision and diffusion half of the model zoo
+# ---------------------------------------------------------------------------
+
+def wake_zero_init(params, gen, std: float = ZOO_WAKE_STD) -> None:
+    """Draw the zero-initialised adaLN linears and final projections of
+    a DiT / MMDiT tree from N(0, std) in place (at zero every block is
+    the identity and the output 0)."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            if "w" in v and ("ada" in k or k == "final_proj"):
+                v["w"].normal_(0.0, std, generator=gen)
+            else:
+                wake_zero_init(v, gen, std)
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of fn() (already warm), by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def zoo_vit(dev, arch: str) -> dict:
+    """One ViT at full width and depth: float32 impl="flash" vs "xla" at
+    batch ZOO_F32_BATCH within LM_F32_REL x max |logit|, then the same
+    weights in bf16 at serve_b128, each impl timed; counters from 0
+    around every forward (flash_attention once per layer with flash,
+    nothing with xla)."""
+    cfg32 = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    n, res = cfg32.n_layers, cfg32.img_res
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+    params = vit_module.vit_init(gen, cfg32, device=dev)
+    img = torch.rand(ZOO_F32_BATCH, res, res, 3, generator=gen, device=dev)
+    flash = {"flash_attention": n}
+    with full_float32():
+        fl, c = counted(lambda: vit_module.vit_forward(params, cfg32, img,
+                                                       impl="flash"))
+        expect_launches(c, flash, f"{arch} f32 flash forward")
+        xl, c = counted(lambda: vit_module.vit_forward(params, cfg32, img,
+                                                       impl="xla"))
+        expect_launches(c, {}, f"{arch} f32 xla forward")
+    scale = float(xl.abs().max())
+    tol = LM_F32_REL * scale
+    err = float((fl - xl).abs().max())
+    if err > tol or not bool(torch.isfinite(fl).all()):
+        raise AssertionError(f"{arch} f32 flash vs xla {err:.3e} > {tol:.3e}")
+    cfg = get_config(arch)
+    params = cast_floats(params, cfg.dtype)
+    imgs = torch.rand(ZOO_SERVE_BATCH, res, res, 3, generator=gen,
+                      device=dev)
+    logits, ms = {}, {}
+    for impl in ("flash", "xla"):
+        logits[impl], c = counted(lambda: vit_module.vit_forward(
+            params, cfg, imgs, impl=impl))
+        expect_launches(c, flash if impl == "flash" else {},
+                        f"{arch} bf16 {impl} forward")
+        ms[impl] = cuda_ms(lambda: vit_module.vit_forward(
+            params, cfg, imgs, impl=impl), 3)
+    rr = rel_rms(logits["flash"], logits["xla"])
+    if rr > ZOO_BF16_REL_RMS or not bool(torch.isfinite(
+            logits["flash"]).all()):
+        raise AssertionError(f"{arch} bf16 flash vs xla rel rms {rr:.3e}")
+    n_params = count_params(params)
+    print(f"zoo {arch} ({n_params / 1e6:.1f}M parameters, {n} layers): "
+          f"launches flash={n} xla=0 a forward; f32 [{ZOO_F32_BATCH}] "
+          f"flash vs xla max_abs_err={err:.3e} (tol {tol:.3e}, |logits| "
+          f"max {scale:.3f}); bf16 [{ZOO_SERVE_BATCH}] flash "
+          f"{ms['flash']:.2f} ms ({ZOO_SERVE_BATCH * 1e3 / ms['flash']:.1f} "
+          f"images/s), xla {ms['xla']:.2f} ms "
+          f"({ZOO_SERVE_BATCH * 1e3 / ms['xla']:.1f} images/s), flash vs "
+          f"xla rel rms {rr:.3e}", flush=True)
+    return {"launches": {f"{arch} f32 forward flash": n,
+                         f"{arch} bf16 forward flash": n,
+                         f"{arch} f32 and bf16 forward xla": 0},
+            "params": n_params, "f32_err": err, "f32_tol": tol,
+            "bf16_rel_rms": rr, "flash_ms": ms["flash"], "xla_ms": ms["xla"]}
+
+
+def zoo_swin(dev) -> dict:
+    """Swin-B at full width and depth, bf16: a forward at serve_b128
+    timed; one at 384 px (batch ZOO_384_BATCH), where window 7 divides no
+    stage's map and each takes window 12. No kernel launches."""
+    cfg = get_config("swin-b")
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 1)
+    params = swin_module.swin_init(gen, cfg, device=dev)
+    imgs = torch.rand(ZOO_SERVE_BATCH, cfg.img_res, cfg.img_res, 3,
+                      generator=gen, device=dev)
+    out, c = counted(lambda: swin_module.swin_forward(params, cfg, imgs))
+    expect_launches(c, {}, "swin-b forward")
+    ms = cuda_ms(lambda: swin_module.swin_forward(params, cfg, imgs), 3)
+    res = 384
+    windows = [swin_module._effective_window(res // cfg.patch // 2 ** i,
+                                             cfg.window)
+               for i in range(len(cfg.depths))]
+    img384 = torch.rand(ZOO_384_BATCH, res, res, 3, generator=gen,
+                        device=dev)
+    out384, c = counted(lambda: swin_module.swin_forward(params, cfg,
+                                                         img384))
+    expect_launches(c, {}, "swin-b 384 forward")
+    ms384 = once_ms(lambda: swin_module.swin_forward(params, cfg, img384))
+    for o, b in ((out, ZOO_SERVE_BATCH), (out384, ZOO_384_BATCH)):
+        if o.shape != (b, cfg.n_classes) or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"swin-b logits {tuple(o.shape)} not finite "
+                                 f"or of the wrong shape")
+    n_params = count_params(params)
+    print(f"zoo swin-b ({n_params / 1e6:.1f}M parameters, depths "
+          f"{cfg.depths}): bf16 [{ZOO_SERVE_BATCH}, 224 px] {ms:.2f} ms "
+          f"({ZOO_SERVE_BATCH * 1e3 / ms:.1f} images/s); [{ZOO_384_BATCH}, "
+          f"384 px] windows by stage {windows} {ms384:.2f} ms; no kernel",
+          flush=True)
+    return {"params": n_params, "ms": ms, "ms_384": ms384,
+            "windows_384": windows}
+
+
+def zoo_dit(dev) -> dict:
+    """DiT-L/2 at full width and depth: a float32 forward at 256 px
+    (latent 32, its trained grid) against the bf16 forward of the same
+    weights (relative RMS), then dit_sample in bf16 at gen_fast (latent
+    64: the learned 16 x 16 pos_embed resized to 32 x 32 on the card),
+    ms a step and peak memory. No kernel launches."""
+    cfg = get_config("dit-l2")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 2)
+    params = dit_module.dit_init(gen, cfg32, device=dev)
+    wake_zero_init(params, gen)
+    r0 = cfg.img_res // 8
+    lat = torch.randn(ZOO_DIT_F32_BATCH, r0, r0, cfg.latent_channels,
+                      generator=gen, device=dev)
+    t = torch.tensor([10.0, 700.0], device=dev)
+    y = torch.tensor([3, cfg.n_classes], device=dev)
+    with full_float32():
+        want = dit_module.dit_forward(params, cfg32, lat, t, y)
+    params = cast_floats(params, cfg.dtype)
+    got = dit_module.dit_forward(params, cfg, lat, t, y)
+    rr = rel_rms(got, want)
+    if rr > ZOO_BF16_REL_RMS or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"dit-l2 bf16 vs f32 rel rms {rr:.3e}")
+    r = ZOO_GEN_RES // 8
+    key = prng.PRNGKey(ZOO_SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def sample():
+        return diffusion_module.dit_sample(
+            params, cfg, key, batch=ZOO_GEN_BATCH, n_steps=ZOO_GEN_STEPS,
+            latent_res=r)
+
+    x, c = counted(sample)
+    expect_launches(c, {}, "dit_sample")
+    step_ms = once_ms(sample) / ZOO_GEN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if x.shape != (ZOO_GEN_BATCH, r, r, cfg.latent_channels) or not bool(
+            torch.isfinite(x).all()):
+        raise AssertionError("dit_sample latents not finite or of the "
+                             "wrong shape")
+    n_params = count_params(params)
+    print(f"zoo dit-l2 ({n_params / 1e6:.1f}M parameters): bf16 vs f32 "
+          f"forward [{ZOO_DIT_F32_BATCH}, latent {r0}] rel rms {rr:.3e} "
+          f"(tol {ZOO_BF16_REL_RMS}); dit_sample gen_fast [{ZOO_GEN_BATCH}"
+          f", latent {r}, {(r // cfg.patch) ** 2} tokens, {ZOO_GEN_STEPS} "
+          f"steps] {step_ms:.2f} ms a step, |x| max "
+          f"{float(x.abs().max()):.3e}, peak {peak:.2f} GiB; no kernel",
+          flush=True)
+    return {"params": n_params, "bf16_rel_rms": rr, "step_ms": step_ms,
+            "peak_gib": peak}
+
+
+def zoo_flux(dev) -> dict:
+    """Flux-dev MMDiT at full width and depth, bf16: rf_sample at
+    gen_fast (latent 64: 1,024 image tokens + 128 text tokens from seeded
+    embeddings), ms a step, peak memory (at most ZOO_PEAK_GIB) and the
+    parameter count. No kernel launches."""
+    cfg = get_config("flux-dev")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 3)
+    params = mmdit_module.mmdit_init(gen, cfg, device=dev)
+    wake_zero_init(params, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = ZOO_GEN_RES // 8
+    txt = torch.randn(ZOO_GEN_BATCH, mmdit_module.TXT_TOKENS, cfg.cond_dim,
+                      generator=gen, device=dev)
+    key = prng.PRNGKey(ZOO_SEED + 3, device=dev)
+
+    def sample():
+        return diffusion_module.rf_sample(
+            params, cfg, key, batch=ZOO_GEN_BATCH, n_steps=ZOO_GEN_STEPS,
+            txt_emb=txt, latent_res=r)
+
+    x, c = counted(sample)
+    expect_launches(c, {}, "rf_sample")
+    step_ms = once_ms(sample) / ZOO_GEN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = count_params(params)
+    if x.shape != (ZOO_GEN_BATCH, r, r, cfg.latent_channels) or not bool(
+            torch.isfinite(x).all()):
+        raise AssertionError("rf_sample latents not finite or of the "
+                             "wrong shape")
+    print(f"zoo flux-dev ({n_params / 1e9:.3f}B parameters, "
+          f"{cfg.n_double_blocks} double + {cfg.n_single_blocks} single "
+          f"blocks, init {init_s:.1f} s): rf_sample gen_fast "
+          f"[{ZOO_GEN_BATCH}, latent {r}, {(r // cfg.patch) ** 2} image + "
+          f"{mmdit_module.TXT_TOKENS} text tokens, {ZOO_GEN_STEPS} steps] "
+          f"{step_ms:.2f} ms a step, |x| max {float(x.abs().max()):.3e}, "
+          f"peak {peak:.2f} GiB; no kernel", flush=True)
+    if peak > ZOO_PEAK_GIB:
+        raise AssertionError(f"flux-dev peak {peak:.1f} GiB > {ZOO_PEAK_GIB}:"
+                             f" cut its depth")
+    return {"params": n_params, "step_ms": step_ms, "peak_gib": peak,
+            "init_s": init_s}
+
+
+def _card_vs_cpu(dev, label, fn, args, dtype, worst) -> None:
+    """fn(*args) on the CPU and on the card (args moved), max |card - CPU|
+    over max(1, max |CPU|) within ZOO_CPU_TOL; recorded in `worst`."""
+    dev_args = tree_map(lambda t: t.to(dev), list(args))
+    want = fn(*args)
+    got = fn(*dev_args)
+    want, got = (want if isinstance(want, tuple) else (want,),
+                 got if isinstance(got, tuple) else (got,))
+    err = max(float((g.cpu().float() - w.float()).abs().max())
+              / max(1.0, float(w.float().abs().max()))
+              for g, w in zip(got, want))
+    worst[label] = err
+    if err > ZOO_CPU_TOL[dtype] or not all(bool(torch.isfinite(g).all())
+                                           for g in got):
+        raise AssertionError(f"zoo {label}: card vs CPU {err:.3e} > "
+                             f"{ZOO_CPU_TOL[dtype]}")
+
+
+def zoo_block_parity(dev) -> dict:
+    """One block of each family at full width, float32, batch 1, on the
+    card and on the CPU, weights drawn by numpy: a Swin stage-3 block (14
+    x 14 map, dim 512, 16 heads, window 7, shifted by 3), a DiT-L/2 block
+    and a Flux double and single block (ZOO_BLOCK_TOKENS image tokens,
+    128 text tokens)."""
+    f32 = torch.float32
+    rng = np.random.default_rng(ZOO_SEED)
+    worst = {}
+
+    def weights(tree):
+        return params_from_numpy(perturb_numpy(tree, rng), f32, "cpu")
+
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32))
+
+    with torch.no_grad(), full_float32():
+        w = 7
+        bp = weights(swin_module.swin_block_init(rng, 512, 16, w,
+                                                 device="cpu"))
+        idx = torch.as_tensor(swin_module._rel_position_index(w))
+        _card_vs_cpu(dev, "swin-b stage-3 block", lambda p, x, i: (
+            swin_module.swin_block(p, x, n_heads=16, window=w, shift=w // 2,
+                                   rel_index=i)),
+            (bp, normal(1, 14, 14, 512), idx), f32, worst)
+        cfg = dataclasses.replace(get_config("dit-l2"), dtype=f32)
+        bp = weights(dit_module.dit_block_init(rng, cfg, device="cpu"))
+        _card_vs_cpu(dev, "dit-l2 block", lambda p, x, c: dit_module.dit_block(
+            p, x, c, cfg), (bp, normal(1, ZOO_BLOCK_TOKENS, cfg.d_model),
+                            normal(1, cfg.d_model)), f32, worst)
+        cfg = dataclasses.replace(get_config("flux-dev"), dtype=f32)
+        d, tt = cfg.d_model, mmdit_module.TXT_TOKENS
+        bp = weights(mmdit_module.double_block_init(rng, cfg, device="cpu"))
+        _card_vs_cpu(dev, "flux-dev double block",
+                     lambda p, i, t, c: mmdit_module.double_block(p, i, t, c,
+                                                                  cfg),
+                     (bp, normal(1, ZOO_BLOCK_TOKENS, d), normal(1, tt, d),
+                      normal(1, d)), f32, worst)
+        del bp
+        bp = weights(mmdit_module.single_block_init(rng, cfg, device="cpu"))
+        _card_vs_cpu(dev, "flux-dev single block",
+                     lambda p, x, c: mmdit_module.single_block(p, x, c, cfg),
+                     (bp, normal(1, ZOO_BLOCK_TOKENS + tt, d), normal(1, d)),
+                     f32, worst)
+    print("zoo full-width blocks, float32, card vs CPU (max abs err over "
+          "max(1, |CPU|)): " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in worst.items())
+          + f" (tol {ZOO_CPU_TOL[f32]})", flush=True)
+    return worst
+
+
+def zoo_small_parity(dev) -> dict:
+    """The six SMOKE configs in float32 and bf16 on the card and on the
+    CPU, weights and inputs drawn by numpy (tests/torch_zoo_weights.py):
+    forwards, losses and samplers within ZOO_CPU_TOL; the ViTs' forward
+    with impl="flash" (the kernel on the card, its plain version on the
+    CPU) launches flash_attention once per layer."""
+    worst = {}
+    with torch.no_grad(), exact_bf16():
+        for arch in ("vit-s16", "vit-b16", "vit-h14", "swin-b", "dit-l2",
+                     "flux-dev"):
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = dataclasses.replace(get_smoke_config(arch),
+                                          dtype=dtype)
+                tree = numpy_weights(cfg)
+                want = smoke_outputs(cfg, params_from_numpy(tree, dtype,
+                                                            "cpu"), "cpu")
+                got, c = counted(lambda: smoke_outputs(
+                    cfg, params_from_numpy(tree, dtype, dev), dev,
+                    vit_impl="flash"))
+                vit = cfg.family == "vision" and not cfg.swin
+                expect_launches(c, {"flash_attention": cfg.n_layers}
+                                if vit else {}, f"{arch} smoke")
+                err = max(float((g.cpu().float() - w.float()).abs().max())
+                          / max(1.0, float(w.float().abs().max()))
+                          for g, w in zip(got, want))
+                worst[f"{arch} {str(dtype)[6:]}"] = err
+                if err > ZOO_CPU_TOL[dtype]:
+                    raise AssertionError(f"zoo {arch} {dtype} smoke: card "
+                                         f"vs CPU {err:.3e}")
+    print("zoo small input, card vs CPU (forward, loss, sampler at 2 "
+          "steps; max abs err over max(1, |CPU|)): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    return worst
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 8e. Returns the flash_attention launches by ViT path, the
+    two ViT flash rows and each model's numbers."""
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    with torch.no_grad():
+        for arch in ZOO_VITS:
+            out[arch] = zoo_vit(dev, arch)
+            out["launches"].update(out[arch].pop("launches"))
+            torch.cuda.empty_cache()
+        out["rows"] = {
+            "[128, 257, 16, 80] bf16 (ViT-H/14)": flash_case(
+                dev, ZOO_SERVE_BATCH, 257, 257, 16, 16, 80,
+                dtype=torch.bfloat16, library=True),
+            "[128, 197, 12, 64] bf16 (ViT-B/16)": flash_case(
+                dev, ZOO_SERVE_BATCH, 197, 197, 12, 12, 64,
+                dtype=torch.bfloat16, library=True)}
+        torch.cuda.empty_cache()
+        out["swin-b"] = zoo_swin(dev)
+        torch.cuda.empty_cache()
+        out["dit-l2"] = zoo_dit(dev)
+        torch.cuda.empty_cache()
+        out["flux-dev"] = zoo_flux(dev)
+        torch.cuda.empty_cache()
+    out["blocks"] = zoo_block_parity(dev)
+    out["small"] = zoo_small_parity(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"zoo phase: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2787,6 +3212,8 @@ def main() -> int:
     served = serve_phase(dev)
     torch.cuda.empty_cache()
     lm = lm_phase(dev)
+    torch.cuda.empty_cache()
+    zoo = zoo_phase(dev)
     stage_phase(spec, DistillSpec())
 
     kernels = []
@@ -2805,13 +3232,13 @@ def main() -> int:
                           if name in MAIN_PATH_KERNELS}
         # flash_attention inside the LMs (phase 8d): its launches on each
         # LM path and its rows at the two models' shapes
+        # and inside the ViTs (phase 8e): its launches on each ViT path
+        # and its rows at ViT-H/14's and ViT-B/16's shapes
         lm_extra = {} if name != "flash_attention" else {
             "lm_launches": lm["launches"],
-            "lm_rows": {label: {
-                "max_abs_err": rr["max_abs_err"], "ms": rr["ms"],
-                "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
-                "bound_by": rr["bound"][1], "library_ms": rr["library_ms"]}
-                for label, rr in lm["rows"].items()}}
+            "lm_rows": _row_json(lm["rows"]),
+            "zoo_launches": zoo["launches"],
+            "zoo_rows": _row_json(zoo["rows"])}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],

@@ -57,6 +57,61 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class VisionConfig:
+    """An image classifier: ViT (S/16, B/16, H/14) or Swin (swin=True,
+    with per-stage depths and dims)."""
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    n_classes: int = 1000
+    # Swin-specific
+    swin: bool = False
+    window: int = 7
+    depths: tuple = ()
+    dims: tuple = ()
+    dtype: Any = torch.bfloat16
+    # the reference's activation rematerialization in training; the
+    # port's forward-only paths do not read it
+    remat: bool = False
+
+    @property
+    def family(self) -> str:
+        return "vision"
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """A latent diffusion backbone: DiT (n_layers > 0, DDPM) or a
+    Flux-style MMDiT (double and single blocks, rectified flow)."""
+    name: str
+    img_res: int
+    patch: int = 2
+    latent_channels: int = 4
+    n_layers: int = 0                # DiT
+    n_double_blocks: int = 0         # MMDiT
+    n_single_blocks: int = 0
+    d_model: int = 1024
+    n_heads: int = 16
+    latent_res: Optional[int] = None  # flux operates on latents
+    cond_dim: int = 768              # text/conditioning embedding width (stub)
+    n_classes: int = 1000            # DiT class conditioning
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+
+    @property
+    def family(self) -> str:
+        return "diffusion"
+
+    @property
+    def is_mmdit(self) -> bool:
+        return self.n_double_blocks > 0
+
+
+@dataclass(frozen=True)
 class DetectorConfig:
     """Light ViT backbone + anchor-free detection heads; float32."""
     name: str

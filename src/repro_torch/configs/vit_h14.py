@@ -1,0 +1,14 @@
+"""ViT-H/14 [arXiv:2010.11929; paper tier]."""
+from repro_torch.configs.base import VisionConfig, register
+
+FULL = VisionConfig(
+    name="vit-h14", img_res=224, patch=14, n_layers=32,
+    d_model=1280, n_heads=16, d_ff=5120,
+)
+
+SMOKE = VisionConfig(
+    name="vit-h14-smoke", img_res=28, patch=7, n_layers=2,
+    d_model=64, n_heads=4, d_ff=128, n_classes=10,
+)
+
+register(FULL, SMOKE)

@@ -157,3 +157,13 @@ def ucb1(acc: np.ndarray, seed_steps: int = 0, c: float = 2.0,
         counts[cell] += 1
         means[cell] += (r - means[cell]) / counts[cell]
     return choices
+
+
+def evaluate_choices(acc: np.ndarray, choices: np.ndarray) -> float:
+    """Mean workload accuracy of a per-timestep selection from acc [T,
+    N]: choices [T], or [T, k] (several cameras: the best of the k each
+    timestep)."""
+    if choices.ndim == 1:
+        return float(acc[np.arange(acc.shape[0]), choices].mean())
+    picked = np.take_along_axis(acc, choices, axis=1)
+    return float(picked.max(1).mean())

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.devices import resolve_device
+
 WINDOW = 10
 ALPHA = 2.0 / (WINDOW + 1.0)
 
@@ -19,6 +21,15 @@ class EWMAState(NamedTuple):
     delta: torch.Tensor      # [F, N] EWMA of accuracy deltas
     last: torch.Tensor       # [F, N] last observed predicted accuracy
     seen: torch.Tensor       # [F, N] visit counts (float)
+
+
+def init_state(n_cells: int, *, device=None) -> EWMAState:
+    """A fresh state over n_cells orientations: [N] float32 zeros on
+    `device` (the card unless the caller passes "cpu"); `update` takes
+    it as it takes a fleet's [F, N] state."""
+    z = torch.zeros(n_cells, dtype=torch.float32,
+                    device=resolve_device(device))
+    return EWMAState(z, z, z, z)
 
 
 def update(state: EWMAState, visited: torch.Tensor,

@@ -96,3 +96,15 @@ def predict_workload_accuracy(workload: Workload,
 def rank_orientations(pred_acc: np.ndarray) -> np.ndarray:
     """Descending rank order (indices into the explored set)."""
     return np.argsort(-pred_acc, kind="stable")
+
+
+def detections_to_counts(det_boxes: np.ndarray, det_scores: np.ndarray,
+                         det_classes: np.ndarray, obj_class: int, *,
+                         score_thresh: float = 0.5):
+    """Static-shape detections of one image (boxes [M, 4] cxcywh, scores
+    and classes [M]) -> (count, area_sum) of obj_class at or above the
+    score threshold."""
+    keep = (det_scores >= score_thresh) & (det_classes == obj_class)
+    count = int(keep.sum())
+    areas = det_boxes[:, 2] * det_boxes[:, 3]
+    return count, float((areas * keep).sum())

@@ -183,3 +183,14 @@ def resize_shape(grid: OrientationGrid, mask: np.ndarray, labels: np.ndarray,
         if not removed:
             mask[order[0]] = False
     return mask
+
+
+def shape_stats(mask: np.ndarray, grid: OrientationGrid) -> dict:
+    """A shape's size (cells) and its largest pan or tilt span between
+    cell centers (degrees)."""
+    cells = np.flatnonzero(mask)
+    if cells.size == 0:
+        return {"size": 0, "max_span_deg": 0.0}
+    centers = grid.centers[cells]
+    span = (centers.max(0) - centers.min(0)).max()
+    return {"size": int(cells.size), "max_span_deg": float(span)}

@@ -2,7 +2,7 @@
 
   * the provider registry — string-keyed factories (`tables`, `scene`,
     `detector`) with one uniform signature, open through
-    `register_provider`;
+    `register_provider`, each building an `ObservationProvider`;
   * `FleetRunSpec` — a JSON-round-trippable description of a fleet
     experiment, field for field the reference package's, so one spec
     JSON names the same run in both packages;
@@ -29,7 +29,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -68,6 +68,30 @@ DEFAULT_QUERIES = (
     ("frcnn", "person", "binary"),
     ("tiny-yolov4", "person", "agg_count"),
 )
+
+
+@runtime_checkable
+class ObservationProvider(Protocol):
+    """What the episode loop needs from an observation source (the
+    reference's protocol but `shard`: sharding is not ported)."""
+
+    @property
+    def n_steps(self) -> int:
+        """Episode length this provider can serve."""
+        ...
+
+    def init_carry(self, state: FleetState):
+        """Provider-owned carry (scene state, model params, ...)."""
+        ...
+
+    def scan_xs(self):
+        """Per-step inputs, each leading with [E]."""
+        ...
+
+    def observe(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
+                state: FleetState, xs):
+        """(carry, state, xs) -> (new carry, FleetObs) for one step."""
+        ...
 
 
 # ---------------------------------------------------------------------------

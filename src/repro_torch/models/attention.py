@@ -1,6 +1,6 @@
 """Attention: multi-head and grouped-query (GQA) blocks, multi-head
-latent attention (MLA, DeepSeek-V2/V3), RoPE, and the
-scaled-dot-product core behind one `impl` switch:
+latent attention (MLA, DeepSeek-V2/V3), RoPE, Swin's windowed
+attention, and the scaled-dot-product core behind one `impl` switch:
 
   - "xla":   plain PyTorch products with float32 logits (the reference
              path; sequences of CHUNKED_THRESHOLD or more run in query
@@ -237,3 +237,62 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     else:
         o = sdpa(q, k, v, causal=causal, impl="xla", scale=scale)
     return linear(p["wo"], o.reshape(b, s, n_heads * v_head_dim))
+
+
+# ---------------------------------------------------------------------------
+# windowed attention (Swin)
+# ---------------------------------------------------------------------------
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B * nW, window * window, C], windows row-major
+    within each image."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window, window, w // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+
+
+def window_unpartition(wins: torch.Tensor, window: int, h: int,
+                       w: int) -> torch.Tensor:
+    """[B * nW, window * window, C] -> [B, H, W, C]."""
+    b = wins.shape[0] // ((h // window) * (w // window))
+    x = wins.reshape(b, h // window, w // window, window, window, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
+
+
+def shifted_window_mask(h: int, w: int, window: int, shift: int,
+                        device=None) -> torch.Tensor:
+    """Additive bias [nW, window^2, window^2] for shifted windows: 0
+    between tokens of one region of the rolled map, -1e9 across
+    regions."""
+    img = torch.zeros(1, h, w, 1, device=device)
+    cnt = 0
+    h_slices = ((0, h - window), (h - window, h - shift), (h - shift, h))
+    w_slices = ((0, w - window), (w - window, w - shift), (w - shift, w))
+    for hs, he in h_slices:
+        for ws, we in w_slices:
+            img[:, hs:he, ws:we, :] = cnt
+            cnt += 1
+    wins = window_partition(img, window).squeeze(-1)      # [nW, window^2]
+    diff = wins[:, :, None] - wins[:, None, :]
+    return torch.where(diff == 0, 0.0, -1e9)
+
+
+def window_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                     rel_bias: torch.Tensor | None = None,
+                     mask: torch.Tensor | None = None,
+                     impl: str = "xla") -> torch.Tensor:
+    """x [nWB, T, C] windows; rel_bias [n_heads, T, T]; mask [nW, T, T].
+    Runs the plain biased attention whatever `impl` is, as the
+    reference's does (the flash kernel takes no bias)."""
+    nwb, t, c = x.shape
+    q = linear(p["wq"], x).reshape(nwb, t, n_heads, -1)
+    k = linear(p["wk"], x).reshape(nwb, t, n_heads, -1)
+    v = linear(p["wv"], x).reshape(nwb, t, n_heads, -1)
+    bias = None
+    if rel_bias is not None:
+        bias = rel_bias[None, :, None]          # [1, H, 1, T, T]
+    if mask is not None:
+        m = mask.repeat(nwb // mask.shape[0], 1, 1)[:, None, None]
+        bias = m if bias is None else bias + m
+    o = sdpa_xla(q, k, v, causal=False, bias=bias)
+    return linear(p["wo"], o.reshape(nwb, t, c))

@@ -1,12 +1,12 @@
 """The layers of the port's models, as plain functions on parameter
 dictionaries (the JAX package's pytree layout, so one checkpoint serves
-both): linear, embedding, layernorm, rmsnorm, the GELU and the gated
-(SwiGLU) MLP, the NHWC/HWIO convolution, and the helpers for stacked
-layers and parameter trees.
+both): linear, embedding, layernorm, adaLN (modulated layernorm),
+rmsnorm, the GELU and the gated (SwiGLU) MLP, the NHWC/HWIO
+convolution, and the helpers for stacked layers and parameter trees.
 
 Numerics follow the reference: layernorm uses the population variance
-and eps = 1e-6 (torch's default is 1e-5); rmsnorm computes in float32
-and returns x's dtype; GELU is the tanh approximation; `linear` casts
+and eps = 1e-6 (torch's default is 1e-5); the norms compute in float32
+and return x's dtype; GELU is the tanh approximation; `linear` casts
 its weights to x's dtype. The detector is float32; the LMs run in their
 config's dtype.
 """
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.devices import resolve_device
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
 from repro_torch.train.optim import tree_leaves, tree_map
 
@@ -36,7 +37,10 @@ def trunc_normal(gen, shape, std: float = 0.02, device=None,
     torch.nn.init.trunc_normal_ on the generator's device, whose draws
     differ between PyTorch versions; a numpy Generator
     (np.random.default_rng) gives the same weights under any PyTorch
-    (standard normals, those past +-2 drawn again, times std)."""
+    (standard normals, those past +-2 drawn again, times std). std 0
+    gives zeros and draws nothing."""
+    if std == 0:
+        return torch.zeros(shape, device=device, dtype=dtype)
     if isinstance(gen, np.random.Generator):
         z = gen.standard_normal(shape)
         out = np.abs(z) > 2.0
@@ -55,6 +59,15 @@ def lecun_normal(gen, shape, device=None,
                  dtype=torch.float32) -> torch.Tensor:
     """Truncated normal of std sqrt(1 / fan_in), fan_in = shape[0]."""
     return trunc_normal(gen, shape, std=math.sqrt(1.0 / max(1, shape[0])),
+                        device=device, dtype=dtype)
+
+
+def he_normal(gen, shape, fan_in: int | None = None, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+    """Truncated normal of std sqrt(2 / fan_in), fan_in = shape[0] unless
+    given."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    return trunc_normal(gen, shape, std=math.sqrt(2.0 / max(1, fan_in)),
                         device=device, dtype=dtype)
 
 
@@ -91,12 +104,12 @@ def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = False,
 
 
 def conv_init(gen, k_h: int, k_w: int, c_in: int, c_out: int, *,
-              device=None) -> Params:
-    fan_in = k_h * k_w * c_in
-    return {"w": trunc_normal(gen, (k_h, k_w, c_in, c_out),
-                              std=math.sqrt(2.0 / max(1, fan_in)),
-                              device=device),
-            "b": torch.zeros(c_out, device=device)}
+              device=None, dtype=torch.float32) -> Params:
+    """{"w": [k_h, k_w, c_in, c_out] (HWIO, He normal), "b": [c_out]}."""
+    return {"w": he_normal(gen, (k_h, k_w, c_in, c_out),
+                           fan_in=k_h * k_w * c_in, device=device,
+                           dtype=dtype),
+            "b": torch.zeros(c_out, device=device, dtype=dtype)}
 
 
 def rmsnorm_init(dim: int, *, device=None,
@@ -104,9 +117,10 @@ def rmsnorm_init(dim: int, *, device=None,
     return {"scale": torch.ones(dim, device=device, dtype=dtype)}
 
 
-def layernorm_init(dim: int, *, device=None) -> Params:
-    return {"scale": torch.ones(dim, device=device),
-            "bias": torch.zeros(dim, device=device)}
+def layernorm_init(dim: int, *, device=None,
+                   dtype=torch.float32) -> Params:
+    return {"scale": torch.ones(dim, device=device, dtype=dtype),
+            "bias": torch.zeros(dim, device=device, dtype=dtype)}
 
 
 @contextlib.contextmanager
@@ -146,11 +160,29 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return rmsnorm_plain(x, p["scale"], eps)
 
 
+def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) over the last dim, in float32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mu).mean(-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    mu = x.mean(-1, keepdim=True)
-    var = torch.square(x - mu).mean(-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + eps)
-    return y * p["scale"] + p["bias"]
+    """LayerNorm computed in float32 and returned in x's dtype, as the
+    reference's."""
+    y = _normalize(x, eps) * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def modulated_layernorm(p: Params, x: torch.Tensor, shift: torch.Tensor,
+                        scale: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """adaLN (DiT, MMDiT): LayerNorm without affine, then
+    (1 + scale) * x + shift, in float32, returned in x's dtype. `p` is
+    unused (the reference's signature)."""
+    y = _normalize(x, eps) * (1.0 + scale.float()) + shift.float()
+    return y.to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -192,6 +224,27 @@ def patch_embed(images: torch.Tensor, wflat: torch.Tensor,
         b, gh * gw, patch * patch * c)
     tok = torch.matmul(tiles, wflat)
     return tok if bias is None else tok + bias
+
+
+def grid_side(n: int, what: str) -> int:
+    """The side of a square grid of n patches (raises if n is not a
+    square)."""
+    g = int(round(n ** 0.5))
+    if g * g != n:
+        raise ValueError(f"{what}: {n} patches do not form a square grid")
+    return g
+
+
+def resize_grid(grid: torch.Tensor, g_new: int) -> torch.Tensor:
+    """Bilinear-resize a learned square grid of embeddings [1, g*g, D]
+    to [1, g_new*g_new, D], antialiased when it shrinks, as
+    jax.image.resize's "bilinear" is: the one resize behind the ViT's
+    and DiT's off-grid pos_embed."""
+    g_old = grid_side(grid.shape[1], "pos_embed")
+    x = grid.reshape(1, g_old, g_old, -1).permute(0, 3, 1, 2)
+    x = F.interpolate(x.float(), size=(g_new, g_new), mode="bilinear",
+                      align_corners=False, antialias=True).to(grid.dtype)
+    return x.permute(0, 2, 3, 1).reshape(1, g_new * g_new, -1)
 
 
 def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -249,6 +302,33 @@ def count_params(params: Params) -> int:
 def param_bytes(params: Params) -> int:
     return int(sum(p.numel() * p.element_size()
                    for p in tree_leaves(params)))
+
+
+def params_from_numpy(tree, dtype, device=None,
+                      keep_float32: tuple = ()) -> Params:
+    """A reference parameter tree (nested dicts and lists of numpy or
+    JAX arrays) -> the same tree of tensors on `device` (the card unless
+    the caller passes "cpu"): floating leaves in `dtype`, but those under
+    a key of `keep_float32` in float32, other leaves as they are. bf16
+    leaves (numpy's view of them has no torch counterpart) go through
+    float32, which holds every bf16 value exactly."""
+    device = resolve_device(device)
+
+    def convert(node, f32: bool):
+        if isinstance(node, dict):
+            return {k: convert(v, f32 or k in keep_float32)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v, f32) for v in node]
+        a = np.array(node)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        t = torch.as_tensor(a, device=device)
+        if t.is_floating_point():
+            t = t.to(torch.float32 if f32 else dtype)
+        return t
+
+    return convert(tree, False)
 
 
 def cast_floats(params: Params, dtype) -> Params:

@@ -10,7 +10,6 @@ flash-attention kernel.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -26,6 +25,7 @@ from repro_torch.models.layers import (
     linear_init,
     mlp,
     mlp_init,
+    params_from_numpy,
     rmsnorm,
     rmsnorm_init,
     stack_init,
@@ -109,24 +109,6 @@ def lm_params_from_numpy(tree, dtype, device=None) -> Params:
     as `lm_init` / `moe_lm_init` in the JAX package make them) -> the
     same tree of tensors on `device` (the card unless the caller passes
     "cpu"): floating leaves in `dtype` (the config's), the MoE routers'
-    weights in float32 (as the reference keeps them whatever the dtype),
-    other leaves as they are. bfloat16 leaves (numpy's view of them has
-    no torch counterpart) go through float32, which holds every bfloat16
-    value exactly."""
-    device = resolve_device(device)
-
-    def convert(node, router: bool):
-        if isinstance(node, dict):
-            return {k: convert(v, router or k == "router")
-                    for k, v in node.items()}
-        if isinstance(node, list):
-            return [convert(v, router) for v in node]
-        a = np.array(node)
-        if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        t = torch.as_tensor(a, device=device)
-        if t.is_floating_point():
-            t = t.to(torch.float32 if router else dtype)
-        return t
-
-    return convert(tree, False)
+    weights in float32 (as the reference keeps them whatever the
+    dtype)."""
+    return params_from_numpy(tree, dtype, device, keep_float32=("router",))

@@ -1,7 +1,9 @@
 """The port's examples (`python -m repro_torch.examples.<name>`) run end
 to end as subprocesses on the CPU, with the REPRO_EX_* overrides of
 tests/test_examples_smoke.py, and reach the reference examples' result
-lines; without a card and without `--device cpu` they refuse to run."""
+lines; without a card and without `--device cpu` they refuse to run.
+The quickstart (host numpy only, no device) prints the reference
+quickstart's accuracies."""
 import os
 import subprocess
 import sys
@@ -53,3 +55,24 @@ def test_example_needs_a_card_unless_told_cpu():
     proc = _run(["repro_torch.examples.fleet_experiment"],
                 {"REPRO_EX_CAMERAS": "1", "REPRO_EX_STEPS": "1"})
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def test_quickstart_prints_the_reference_accuracies():
+    """`python -m repro_torch.examples.quickstart` and the reference's
+    examples/quickstart.py at REPRO_EX_DURATION=2.0: the same result
+    lines (MadEye's and the three baselines')."""
+    env = {"REPRO_EX_DURATION": "2.0"}
+    port = _run(["repro_torch.examples.quickstart"], env)
+    ref = subprocess.run([sys.executable,
+                          os.path.join(REPO, "examples", "quickstart.py")],
+                         env={**os.environ, **env,
+                              "PYTHONPATH": os.path.join(REPO, "src")},
+                         capture_output=True, text=True, timeout=300)
+    assert port.returncode == 0 and ref.returncode == 0, \
+        port.stderr[-2000:] + ref.stderr[-2000:]
+
+    def results(out):
+        return [ln for ln in out.splitlines() if "accuracy" in ln]
+
+    assert len(results(port.stdout)) == 4
+    assert results(port.stdout) == results(ref.stdout)

@@ -123,7 +123,13 @@ def test_port_imports_no_jax():
     mods = [m.removesuffix(".__init__") for m in mods]
     assert {"repro_torch.learn.loop", "repro_torch.learn.pairs",
             "repro_torch.learn.loss", "repro_torch.learn.spec",
-            "repro_torch.train.optim", "repro_torch.obs.metrics"} <= set(mods)
+            "repro_torch.train.optim", "repro_torch.obs.metrics",
+            "repro_torch.models.swin", "repro_torch.models.dit",
+            "repro_torch.models.mmdit", "repro_torch.models.diffusion",
+            "repro_torch.configs.vit_s16", "repro_torch.configs.vit_b16",
+            "repro_torch.configs.vit_h14", "repro_torch.configs.swin_b",
+            "repro_torch.configs.dit_l2", "repro_torch.configs.flux_dev",
+            "repro_torch.examples.quickstart"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
