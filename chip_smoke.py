@@ -144,6 +144,22 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      full-width block of each family (Swin stage 3, DiT, Flux double
      and single) and the six SMOKE configs (forward, loss, sampler)
      on the card and on the CPU within stated tolerances;
+  8f. drive the training substrate (PR 22), counters set to 0 just
+     before and read just after each call, none of which may launch a
+     kernel (the losses run the plain attention): stablelm-3b at full
+     width and depth in bf16 with remat, make_train_step(AdamW, 4
+     microbatches, donated state), 3 steps at global batch 8 x 2048
+     (loss and grad_norm finite, moments float32 after step 1, every
+     leaf but the norm scales moved; ms a step, tokens/s, peak memory,
+     one microbatch's gradients and the update timed apart); at full
+     width, depth 2, float32: remat on vs off gradients, 4 microbatches
+     vs 1 within the CPU tests' tolerances; ViT-B/16 at full width, bf16,
+     Adafactor, 3 steps at batch 128 (ms a step, images/s, peak memory);
+     `python -m repro_torch.launch.train --arch vit-b16 --steps 6` as a
+     subprocess, its checkpoint restored (paths and dtypes as pinned)
+     and saved again byte-equal, then `--steps 10` resuming from it; one
+     AdamW step of every SMOKE config (float32 and bf16) card vs CPU
+     (tests/torch_train_inputs.py `check_step`);
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -154,12 +170,14 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      path of phase 8b, for the search kernels `tables_graph_ms`,
      with `slice_launches` its launches on each path of phase 8c, and
      for flash_attention `lm_launches` and `lm_rows` from phase 8d
-     and `zoo_launches` and `zoo_rows` from phase 8e),
+     and `zoo_launches` and `zoo_rows` from phase 8e, and its
+     `train_launches` on each train path of phase 8f),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
-Imports torch, the port (src/repro_torch) and tests/torch_zoo_weights.py
-(numpy-drawn zoo weights) only.
+Imports torch, the port (src/repro_torch), tests/torch_zoo_weights.py
+(numpy-drawn zoo weights) and tests/torch_train_inputs.py (numpy-drawn
+train-step inputs and their comparison) only.
 """
 from __future__ import annotations
 
@@ -173,6 +191,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -185,6 +204,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import (  # noqa: E402
     LM_ARCHS,
+    ShapeSpec,
     get_config,
     get_smoke_config,
 )
@@ -334,7 +354,10 @@ from repro_torch.serving.engine import (  # noqa: E402
     InferenceEngine,
     run_fleet_detector_controller,
 )
+from repro_torch.train import checkpoint as ckpt_module  # noqa: E402
+from repro_torch.train import trainer as trainer_module  # noqa: E402
 from repro_torch.train.optim import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch.train import synthetic_batch  # noqa: E402
 
 # numpy-drawn zoo weights in the reference's layout (tests/, numpy and the
 # port only)
@@ -343,6 +366,14 @@ from torch_zoo_weights import (  # noqa: E402
     numpy_weights,
     perturb_numpy,
     smoke_outputs,
+)
+from torch_train_inputs import (  # noqa: E402
+    TRAIN_ARCHS,
+    check_step,
+    numpy_batch,
+    smoke as train_smoke,
+    torch_batch,
+    train_params,
 )
 
 # the main path's cell: full-width madeye-approx, one step's shapes
@@ -461,6 +492,24 @@ ZOO_PEAK_GIB = 70.0                  # Flux runs at full depth below this
 # max(1, max |CPU|) (the CPU tests' tolerances against the reference)
 ZOO_CPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ZOO_BLOCK_TOKENS = 256               # DiT / MMDiT image tokens of the block check
+# the training substrate (PR 22): stablelm-3b at full width and depth
+# (src/repro/configs/stablelm_3b.py:8) in bf16 with remat, AdamW, 3 steps
+# at global batch 8 x 2048 tokens in 4 microbatches (train_4k's 256 x
+# 4096 cut to fit one card); its float32 checks at full width, depth cut
+# to 2 layers, batch 4 x 2048; ViT-B/16 (src/repro/configs/vit_b16.py:4)
+# at batch 128, 224 px, bf16, Adafactor, 3 steps; the launcher on
+# ViT-B/16 at batch 8 (6 steps, then resumed to 10); one step of each
+# SMOKE config, card vs CPU (tests/torch_train_inputs.py)
+TRAIN_LM_ARCH, TRAIN_LM_BATCH, TRAIN_LM_SEQ = "stablelm-3b", 8, 2048
+TRAIN_LM_MICRO, TRAIN_STEPS = 4, 3
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 4
+TRAIN_VIT_ARCH, TRAIN_VIT_BATCH = "vit-b16", 128
+TRAIN_LAUNCH_STEPS = (6, 10)
+TRAIN_SEED = 0
+# remat on vs off: the same kernels on the same inputs (bit-equal
+# expected); held to 1e-6 of each gradient leaf's largest in case a
+# library picks another algorithm for the recomputed graph
+TRAIN_REMAT_REL = 1e-6
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -3145,6 +3194,359 @@ def zoo_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8f: the training substrate (PR 22)
+# ---------------------------------------------------------------------------
+
+def _train_counted(launches: dict, label: str, fn):
+    """counted(fn) with no kernel allowed; the counts are added to
+    launches[label]."""
+    out, c = counted(fn)
+    total = launches.setdefault(label, {})
+    for k, v in c.items():
+        total[k] = total.get(k, 0) + v
+    expect_launches(c, {}, label)
+    return out
+
+
+def _train_steps(ts, params, opt, batches, key, label: str,
+                 launches: dict):
+    """ts.step over `batches` (step i's key fold_in(key, 10**6 + i), as
+    the launcher's), each counted from 0: no kernel may launch, loss and
+    grad_norm must be finite and AdamW's moments float32 after every
+    step. Returns (params, opt, [(loss, grad_norm)], [ms a step], host
+    clock around each synchronised step)."""
+    metrics, ms = [], []
+    for i, batch in enumerate(batches):
+        k = prng.fold_in(key, 10 ** 6 + i)
+        t0 = time.perf_counter()
+        params, opt, m = _train_counted(
+            launches, label, lambda: ts.step(params, opt, batch, k))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        lg = (float(m["loss"]), float(m["grad_norm"]))
+        if not all(math.isfinite(v) for v in lg):
+            raise AssertionError(f"{label} step {i + 1}: loss, grad_norm "
+                                 f"{lg}")
+        metrics.append(lg)
+        if isinstance(opt, trainer_module.optim.AdamState):
+            dts = {t.dtype for t in tree_leaves(opt.mu) + tree_leaves(
+                opt.nu)}
+            if dts != {torch.float32}:
+                raise AssertionError(f"{label} step {i + 1}: moments "
+                                     f"{dts}, want float32")
+    return params, opt, metrics, ms
+
+
+def _moved(before, params, label: str) -> float:
+    """Every leaf moved somewhere in its first 4096 elements, but those
+    whose sampled values are all of magnitude >= 0.5 (norm scales at
+    1.0: in bf16 their spacing 2^-7 is 78 lr, so an lr-sized update
+    rounds away); returns the share of all sampled elements that
+    moved."""
+    moved = total = 0
+    for b, p in zip(before, tree_leaves(params)):
+        d = p.reshape(-1)[:b.numel()] != b
+        if bool((b.float().abs() < 0.5).any()) and not bool(d.any()):
+            raise AssertionError(f"{label}: a {tuple(p.shape)} parameter "
+                                 "did not move")
+        moved += int(d.sum())
+        total += d.numel()
+    return moved / total
+
+
+def train_lm_full(dev, launches: dict) -> dict:
+    """stablelm-3b at full width and depth, bf16, remat, AdamW (donated
+    state), global batch TRAIN_LM_BATCH x TRAIN_LM_SEQ in TRAIN_LM_MICRO
+    microbatches, TRAIN_STEPS steps on the launcher's synthetic token
+    streams."""
+    cfg = get_config(TRAIN_LM_ARCH)
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        raise AssertionError("stablelm-3b trains in bf16 with remat")
+    # donated, as the launcher's loop does: a functional update holds the
+    # old and the new state together (PERF.md, PR 22)
+    ts = trainer_module.make_train_step(cfg, optimizer="adamw",
+                                        microbatches=TRAIN_LM_MICRO,
+                                        donate=True)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = ts.init_params(gen, dev)
+    opt = ts.init_opt(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    shape = ShapeSpec("train_4k, cut", "train", seq_len=TRAIN_LM_SEQ,
+                      global_batch=TRAIN_LM_BATCH)
+    key = prng.PRNGKey(TRAIN_SEED, device=dev)
+    batches = [{k: v.reshape((TRAIN_LM_MICRO, -1) + v.shape[1:])
+                for k, v in synthetic_batch(cfg, shape, prng.fold_in(
+                    key, i)).items()} for i in range(TRAIN_STEPS)]
+    before = [p.reshape(-1)[:4096].clone() for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, metrics, ms = _train_steps(ts, params, opt, batches, key,
+                                            "stablelm-3b steps", launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = _moved(before, params, "train stablelm-3b")
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    # where a step's time goes: one microbatch's loss and gradients
+    # (forward, recompute, backward), and the donated AdamW update on
+    # them (host clock around synchronised calls)
+    mb0 = {k: v[0] for k, v in batches[0].items()}
+    loss_fn = trainer_module._loss_for(cfg)
+    t0 = time.perf_counter()
+    _, grads = _train_counted(
+        launches, "stablelm-3b steps", lambda: trainer_module.value_and_grad(
+            loss_fn, params, mb0, key))
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _train_counted(launches, "stablelm-3b steps",
+                   lambda: trainer_module.optim.adamw_update(
+                       params, grads, opt, lr=1e-4, weight_decay=0.01,
+                       donate=True))
+    update_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    row = {"params": n_params, "loss": [m[0] for m in metrics],
+           "grad_norm": [m[1] for m in metrics], "ms": ms,
+           "step_ms": step_ms, "tokens_per_s": tokens * 1e3 / step_ms,
+           "peak_gib": peak, "moved_share": moved,
+           "microbatch_grad_ms": grad_ms, "update_ms": update_ms}
+    print(f"train stablelm-3b bf16, remat, AdamW donated "
+          f"({n_params / 1e9:.4f}B "
+          f"parameters): {TRAIN_STEPS} steps at {TRAIN_LM_BATCH} x "
+          f"{TRAIN_LM_SEQ} tokens in {TRAIN_LM_MICRO} microbatches; loss "
+          + " -> ".join(f"{m[0]:.4f}" for m in metrics) + ", grad_norm "
+          + " -> ".join(f"{m[1]:.3f}" for m in metrics)
+          + f"; ms a step " + " / ".join(f"{t:.1f}" for t in ms)
+          + f" ({step_ms:.1f} over steps 2-{TRAIN_STEPS}: "
+          f"{row['tokens_per_s']:.0f} tokens/s); peak {peak:.2f} GiB; "
+          f"moments float32 after step 1; {moved:.1%} of sampled "
+          "parameters moved (every leaf but the norm scales); one "
+          f"microbatch's gradients {grad_ms:.1f} ms, the update "
+          f"{update_ms:.1f} ms; 0 kernel launches",
+          flush=True)
+    return row
+
+
+def train_lm_checks(dev, launches: dict) -> dict:
+    """stablelm-3b at full width, depth cut to TRAIN_CHECK_LAYERS, in
+    float32, batch TRAIN_CHECK_BATCH x TRAIN_LM_SEQ: gradients with remat
+    on and off (TRAIN_REMAT_REL), and one AdamW step with 4 microbatches
+    against 1 (check_step's float32 tolerances: the sums run in another
+    order)."""
+    cfg = dataclasses.replace(get_config(TRAIN_LM_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+    params = trainer_module.make_train_step(cfg).init_params(gen, dev)
+    key = prng.PRNGKey(TRAIN_SEED + 1, device=dev)
+    batch = synthetic_batch(cfg, ShapeSpec(
+        "check", "train", seq_len=TRAIN_LM_SEQ,
+        global_batch=TRAIN_CHECK_BATCH), key)
+    grads = {}
+    for flag in (True, False):
+        loss_fn = trainer_module._loss_for(dataclasses.replace(
+            cfg, remat=flag))
+        loss, g = _train_counted(
+            launches, "stablelm-3b depth-2 checks",
+            lambda: trainer_module.value_and_grad(loss_fn, params, batch,
+                                                  key))
+        grads[flag] = (float(loss), g)
+        del g
+    remat_err = max(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(tree_leaves(grads[True][1]),
+                                    tree_leaves(grads[False][1])))
+    if grads[True][0] != grads[False][0] or remat_err > TRAIN_REMAT_REL:
+        raise AssertionError(f"train check: remat on vs off: loss "
+                             f"{grads[True][0]} vs {grads[False][0]}, "
+                             f"gradients {remat_err:.3e}")
+    del grads
+    steps = {}
+    for m in (1, TRAIN_LM_MICRO):
+        ts = trainer_module.make_train_step(cfg, microbatches=m)
+        b = batch if m == 1 else {k: v.reshape((m, -1) + v.shape[1:])
+                                  for k, v in batch.items()}
+        steps[m] = _train_counted(
+            launches, "stablelm-3b depth-2 checks",
+            lambda: ts.step(params, ts.init_opt(params), b, key))
+    micro = check_step(steps[TRAIN_LM_MICRO], steps[1], torch.float32,
+                       f"train check: {TRAIN_LM_MICRO} microbatches vs 1")
+    print(f"train stablelm-3b float32, depth cut to {TRAIN_CHECK_LAYERS}, "
+          f"{TRAIN_CHECK_BATCH} x {TRAIN_LM_SEQ}: remat on vs off loss "
+          f"equal, gradients {remat_err:.3e} of each leaf's largest (tol "
+          f"{TRAIN_REMAT_REL}); {TRAIN_LM_MICRO} microbatches vs 1: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in micro.items()),
+          flush=True)
+    return {"remat_rel": remat_err, "microbatches": micro}
+
+
+def train_vit_full(dev, launches: dict) -> dict:
+    """ViT-B/16 at full width and depth, bf16, Adafactor, batch
+    TRAIN_VIT_BATCH at 224 px, TRAIN_STEPS steps on the launcher's
+    synthetic images."""
+    cfg = get_config(TRAIN_VIT_ARCH)
+    ts = trainer_module.make_train_step(cfg, optimizer="adafactor")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 2)
+    params = ts.init_params(gen, dev)
+    opt = ts.init_opt(params)
+    shape = ShapeSpec("cls_224", "train", img_res=cfg.img_res,
+                      global_batch=TRAIN_VIT_BATCH)
+    key = prng.PRNGKey(TRAIN_SEED + 2, device=dev)
+    batches = [synthetic_batch(cfg, shape, prng.fold_in(key, i))
+               for i in range(TRAIN_STEPS)]
+    before = [p.reshape(-1)[:4096].clone() for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, metrics, ms = _train_steps(ts, params, opt, batches, key,
+                                            "vit-b16 steps", launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = _moved(before, params, "train vit-b16")
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    row = {"loss": [m[0] for m in metrics], "ms": ms, "step_ms": step_ms,
+           "images_per_s": TRAIN_VIT_BATCH * 1e3 / step_ms,
+           "peak_gib": peak, "moved_share": moved}
+    print(f"train vit-b16 bf16, Adafactor: {TRAIN_STEPS} steps at batch "
+          f"{TRAIN_VIT_BATCH}, {cfg.img_res} px; loss "
+          + " -> ".join(f"{m[0]:.4f}" for m in metrics) + "; ms a step "
+          + " / ".join(f"{t:.1f}" for t in ms)
+          + f" ({step_ms:.1f} over steps 2-{TRAIN_STEPS}: "
+          f"{row['images_per_s']:.0f} images/s); peak {peak:.2f} GiB; "
+          f"{moved:.1%} of sampled parameters moved; 0 kernel launches",
+          flush=True)
+    return row
+
+
+def _file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def train_launcher_phase(dev) -> dict:
+    """`python -m repro_torch.launch.train --arch vit-b16 --steps 6
+    --batch 8 --ckpt-dir D` as a subprocess on the card, then again with
+    --steps 10: the second prints "restored checkpoint step 6" and ends
+    at step 10. Step 6's checkpoint restores in this process (the
+    manifest's paths those of tree_paths, which the CPU tests hold equal
+    to the reference's keystr; parameters bf16, the step int32, the
+    moments float32) and, saved again, gives the same manifest and shard
+    bytes: the restored tree is the saved one bit for bit."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    first, last = TRAIN_LAUNCH_STEPS
+    ckpt_dir = tempfile.mkdtemp(prefix="train_launch_")
+    again_dir = tempfile.mkdtemp(prefix="train_resave_")
+    out = {}
+    try:
+        for steps in TRAIN_LAUNCH_STEPS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TRAIN_VIT_ARCH, "--steps", str(steps), "--batch", "8",
+                 "--ckpt-dir", ckpt_dir], env=env, cwd=root,
+                capture_output=True, text=True, timeout=600)
+            out[steps] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"launch.train --steps {steps}: exit {proc.returncode}"
+                    f"\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith(("step", "restored"))]
+            print(f"train launcher --steps {steps} ({out[steps]:.1f} s): "
+                  + "; ".join(lines), flush=True)
+            if steps == first:
+                step_dir = os.path.join(ckpt_dir, f"step_{first:08d}")
+                cfg = get_config(TRAIN_VIT_ARCH)
+                ts = trainer_module.make_train_step(cfg)
+                like = ts.init_params(torch.Generator(device=dev), dev)
+                like = (like, ts.init_opt(like))
+                tree, manifest = ckpt_module.restore(ckpt_dir, first, like)
+                paths = ckpt_module.tree_paths(like)
+                want = {p: ("int32" if p == "[1].step" else "bfloat16"
+                            if p.startswith("[0]") else "float32")
+                        for p in paths}
+                got = {p: m["dtype"] for p, m in manifest["meta"].items()}
+                if manifest["paths"] != paths or got != want:
+                    raise AssertionError("launch.train checkpoint: paths or "
+                                         "dtypes off the pinned ones")
+                if int(tree[1].step) != first or manifest["step"] != first:
+                    raise AssertionError("launch.train checkpoint: step "
+                                         f"{int(tree[1].step)}")
+                again = ckpt_module.save(again_dir, first, tree)
+                for name in ("manifest.json", "shard_00000.msgpack"):
+                    if _file_bytes(os.path.join(again, name)) != \
+                            _file_bytes(os.path.join(step_dir, name)):
+                        raise AssertionError(f"launch.train checkpoint: "
+                                             f"{name} differs once restored "
+                                             "and saved again")
+                out["checkpoint_mb"] = os.path.getsize(os.path.join(
+                    step_dir, "shard_00000.msgpack")) / 1e6
+                del tree, like
+            elif f"restored checkpoint step {first}" not in proc.stdout:
+                raise AssertionError("launch.train did not resume from "
+                                     f"step {first}")
+        if ckpt_module.latest_step(ckpt_dir) != last:
+            raise AssertionError("launch.train: no checkpoint at step "
+                                 f"{last}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(again_dir, ignore_errors=True)
+    print(f"train launcher: step {first} checkpoint "
+          f"({out['checkpoint_mb']:.1f} MB) restored bit for bit, paths "
+          "and dtypes as pinned; resumed to step " f"{last}", flush=True)
+    return out
+
+
+def train_small_parity(dev, launches: dict) -> dict:
+    """One AdamW train step of each SMOKE config in float32 and bf16 (the
+    detector float32 only) on the card and on the CPU, weights and
+    batches drawn by numpy (tests/torch_train_inputs.py): check_step's
+    tolerances, no kernel launched."""
+    worst = {}
+    with exact_bf16():
+        for arch in TRAIN_ARCHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = train_smoke(arch, dtype)
+                if getattr(cfg, "dtype", torch.float32) != dtype:
+                    continue
+                label = f"{arch} {str(dtype)[6:]}"
+                ts = trainer_module.make_train_step(cfg)
+                params = train_params(cfg)
+                batch = numpy_batch(cfg)
+                want = ts.step(params, ts.init_opt(params),
+                               torch_batch(batch), prng.PRNGKey(3))
+                pd = tree_map(lambda t: t.to(dev), params)
+                got = _train_counted(launches, "smoke steps", lambda: ts.step(
+                    pd, ts.init_opt(pd), torch_batch(batch, dev),
+                    prng.PRNGKey(3, device=dev)))
+                worst[label] = check_step(got, want, dtype,
+                                          f"train {label} smoke, card vs "
+                                          "CPU")
+    print("train small input, one step card vs CPU (loss and grad_norm "
+          "relative, params absolute): " + "; ".join(
+              f"{k} {v['loss']:.1e} {v['grad_norm']:.1e} {v['params']:.1e}"
+              for k, v in worst.items()), flush=True)
+    return worst
+
+
+def train_phase(dev) -> dict:
+    """Phase 8f. Returns each path's numbers and its kernel launches
+    (none may launch one)."""
+    t0 = time.perf_counter()
+    launches = {}
+    out = {"launches": launches,
+           "stablelm-3b": train_lm_full(dev, launches)}
+    torch.cuda.empty_cache()
+    out["stablelm-3b checks"] = train_lm_checks(dev, launches)
+    torch.cuda.empty_cache()
+    out["vit-b16"] = train_vit_full(dev, launches)
+    torch.cuda.empty_cache()
+    out["launcher"] = train_launcher_phase(dev)
+    out["small"] = train_small_parity(dev, launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"train phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3214,6 +3616,9 @@ def main() -> int:
     lm = lm_phase(dev)
     torch.cuda.empty_cache()
     zoo = zoo_phase(dev)
+    torch.cuda.empty_cache()
+    trained = train_phase(dev)
+    torch.cuda.empty_cache()
     stage_phase(spec, DistillSpec())
 
     kernels = []
@@ -3252,6 +3657,10 @@ def main() -> int:
                if tables_graph_ms else {}),
             **({"slice_launches": slice_launches}
                if slice_launches else {}),
+            # phase 8f: the train paths, each counted from 0 (none
+            # launches a kernel: the losses run the plain attention)
+            "train_launches": {label: c.get(name, 0)
+                               for label, c in trained["launches"].items()},
             **lm_extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

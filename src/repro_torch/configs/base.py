@@ -42,8 +42,8 @@ class LMConfig:
     v_head_dim: int = 128
     # numerics
     dtype: Any = torch.bfloat16
-    # the reference's activation rematerialization in training; the
-    # port's forward-only paths do not read it
+    # activation rematerialization: with grad on, each layer is
+    # recomputed in the backward pass (models/layers.remat)
     remat: bool = True
     tie_embeddings: bool = False
 
@@ -74,8 +74,8 @@ class VisionConfig:
     depths: tuple = ()
     dims: tuple = ()
     dtype: Any = torch.bfloat16
-    # the reference's activation rematerialization in training; the
-    # port's forward-only paths do not read it
+    # activation rematerialization: with grad on, each layer is
+    # recomputed in the backward pass (models/layers.remat)
     remat: bool = False
 
     @property

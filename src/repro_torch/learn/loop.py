@@ -108,12 +108,15 @@ def lr_at(dspec: DistillSpec, step) -> torch.Tensor:
 
 
 def optimizer_apply(name: str, params, grads, opt_state, *, lr,
-                    mask=None, weight_decay: float = 0.0):
+                    mask=None, weight_decay: float = 0.0,
+                    grad_clip: float | None = None):
     """THE optimizer update: every training path funnels into this one
-    call. Returns (params', opt_state')."""
+    call. `grad_clip` is AdamW's global-norm clip (None: the gradients
+    as given). Returns (params', opt_state')."""
     if name == "adamw":
         return optim.adamw_update(params, grads, opt_state, lr=lr,
-                                  mask=mask, weight_decay=weight_decay)
+                                  mask=mask, weight_decay=weight_decay,
+                                  grad_clip=grad_clip)
     if name == "sgd":
         return optim.sgd_update(params, grads, opt_state, lr=lr)
     raise ValueError(f"unknown optimizer {name!r} (adamw | sgd)")
@@ -224,15 +227,6 @@ def merged_params(dspec: DistillSpec, det_params, trained, camera=None):
 # host-side fine-tune (core/continual.py delegates here)
 # ---------------------------------------------------------------------------
 
-def _global_clip(grads) -> Any:
-    """Scale every leaf by min(1, 1.0 / the global norm over all
-    leaves), the per-leaf sums added in sorted-key leaf order."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
-    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads)
-
-
 def finetune_update(params, opt_state, cfg, images, gt_boxes, gt_classes,
                     gt_valid, *, lr: float = 1e-3):
     """One host-side continual-learning step on an image batch: the
@@ -249,8 +243,9 @@ def finetune_update(params, opt_state, cfg, images, gt_boxes, gt_classes,
     with full_float32():
         grads, loss = grad_and_value(loss_fn)(params)
         params, opt_state = optimizer_apply(
-            "adamw", params, _global_clip(grads), opt_state, lr=lr,
-            mask=det.head_params_mask(params), weight_decay=1e-4)
+            "adamw", params, grads, opt_state, lr=lr,
+            mask=det.head_params_mask(params), weight_decay=1e-4,
+            grad_clip=1.0)
     return params, opt_state, loss.detach()
 
 

@@ -27,6 +27,7 @@ from repro_torch.models.layers import (
     mlp_init,
     modulated_layernorm,
     patch_embed,
+    remat,
     resize_grid,
     silu,
     stack_init,
@@ -147,5 +148,6 @@ def dit_forward(params: Params, cfg: DiffusionConfig, latents: torch.Tensor,
     cond = time_condition(params, cfg.dtype, t)
     cond = cond + params["y_embed"][y].to(cond.dtype)
     for i in range(params["layers"]["ada"]["w"].shape[0]):
-        x = dit_block(layer_params(params["layers"], i), x, cond, cfg)
+        x = remat(cfg.remat, dit_block, layer_params(params["layers"], i),
+                  x, cond, cfg)
     return unpatchify(final_layer(params, x, cond), g, p_sz, c)

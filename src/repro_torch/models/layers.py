@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
@@ -275,6 +276,18 @@ def conv2d(p: Params, x: torch.Tensor, *, stride: int = 1,
 # ---------------------------------------------------------------------------
 # stacked layers and parameter trees
 # ---------------------------------------------------------------------------
+
+def remat(enabled: bool, layer, *args):
+    """layer(*args), with its activations recomputed in the backward pass
+    when `enabled` (a config's `remat`) and gradients are being recorded:
+    the reference's `jax.checkpoint` around each scanned layer. The
+    whole layer is recomputed, whatever checkpoint policy the reference
+    names (a policy changes memory, not values). Values are layer's
+    own either way."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
 
 def stack_trees(trees: list) -> Params:
     """Equal-structured trees -> one tree whose leaves are stacked on a

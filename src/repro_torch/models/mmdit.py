@@ -29,6 +29,7 @@ from repro_torch.models.layers import (
     linear,
     linear_init,
     modulated_layernorm,
+    remat,
     rmsnorm,
     rmsnorm_init,
     silu,
@@ -189,11 +190,12 @@ def mmdit_forward(params: Params, cfg: DiffusionConfig,
     txt = linear(params["txt_in"], txt_emb.to(cfg.dtype))
     cond = time_condition(params, cfg.dtype, t * 1000.0)
     for i in range(params["double"]["img_ada"]["w"].shape[0]):
-        img, txt = double_block(layer_params(params["double"], i), img, txt,
-                                cond, cfg)
+        img, txt = remat(cfg.remat, double_block,
+                         layer_params(params["double"], i), img, txt, cond,
+                         cfg)
     fused = torch.cat([txt, img], dim=1)
     for i in range(params["single"]["ada"]["w"].shape[0]):
-        fused = single_block(layer_params(params["single"], i), fused, cond,
-                             cfg)
+        fused = remat(cfg.remat, single_block,
+                      layer_params(params["single"], i), fused, cond, cfg)
     img = fused[:, txt.shape[1]:]
     return unpatchify(final_layer(params, img, cond), g, p_sz, c)

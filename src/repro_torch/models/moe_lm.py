@@ -19,6 +19,7 @@ from repro_torch.models.layers import (
     linear_init,
     mlp,
     mlp_init,
+    remat,
     rmsnorm,
     rmsnorm_init,
     stack_init,
@@ -101,7 +102,9 @@ def moe_lm_init(gen, cfg: LMConfig, device=None) -> Params:
 
 def moe_lm_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                    impl: str = "xla", capacity_factor: float = 1.25):
-    """tokens [B, S] -> (logits [B, S, V], aux_loss)."""
+    """tokens [B, S] -> (logits [B, S, V], aux_loss). With cfg.remat
+    each MoE layer is recomputed in the backward pass (layers.remat), as
+    the reference's; the dense layers are not."""
     s = tokens.shape[1]
     x = embedding(params["embed"], tokens)
     # MLA ropes qk_rope_dim dims of each head, GQA whole heads
@@ -114,15 +117,17 @@ def moe_lm_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                            angles, impl)
         x = x + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x))
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_moe_layers(cfg)):
-        lp = layer_params(params["moe_layers"], i)
+    def moe_block(lp, x, aux):
         x = x + attn_apply(lp["attn"], rmsnorm(lp["attn_norm"], x), cfg,
                            angles, impl)
         y, m = moe.moe_ffn(lp["moe"], rmsnorm(lp["mlp_norm"], x), cfg,
                            capacity_factor=capacity_factor)
-        x = x + y
-        aux = aux + m.aux_loss
+        return x + y, aux + m.aux_loss
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_moe_layers(cfg)):
+        x, aux = remat(cfg.remat, moe_block,
+                       layer_params(params["moe_layers"], i), x, aux)
     x = rmsnorm(params["final_norm"], x)
     return linear(params["lm_head"], x), aux / max(1, n_moe_layers(cfg))
 

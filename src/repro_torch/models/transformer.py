@@ -26,6 +26,7 @@ from repro_torch.models.layers import (
     mlp,
     mlp_init,
     params_from_numpy,
+    remat,
     rmsnorm,
     rmsnorm_init,
     stack_init,
@@ -81,14 +82,15 @@ def lm_head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 
 def lm_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                impl: str = "xla") -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V]."""
+    """tokens [B, S] -> logits [B, S, V]. With cfg.remat each layer is
+    recomputed in the backward pass (layers.remat)."""
     s = tokens.shape[1]
     x = embedding(params["embed"], tokens)
     angles = attn.rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
                                    device=x.device)
     for i in range(cfg.n_layers):
-        x = dense_block(layer_params(params["layers"], i), x, cfg, angles,
-                        impl)
+        x = remat(cfg.remat, dense_block, layer_params(params["layers"], i),
+                  x, cfg, angles, impl)
     return lm_head(params, cfg, rmsnorm(params["final_norm"], x))
 
 
@@ -96,7 +98,7 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood of labels [B, S] under logits
     [B, S, V], in float32."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None]).squeeze(-1).mean()
+    return -logp.gather(-1, labels[..., None].long()).squeeze(-1).mean()
 
 
 def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,

@@ -36,6 +36,7 @@ from repro_torch.models.layers import (
     mlp_init,
     params_from_numpy,
     patch_embed,
+    remat,
     resize_grid,
     stack_init,
     trunc_normal,
@@ -141,15 +142,19 @@ def vit_embed(params: Params, *args,
 def vit_encode_tokens(params: Params, *args, n_heads: int | None = None,
                       impl: str = "xla") -> torch.Tensor:
     """patch tokens [B, P, D] -> encoded tokens [B, 1+P, D] (CLS first);
-    pos_embed is resized when it holds another patch count."""
+    pos_embed is resized when it holds another patch count. A
+    VisionConfig with remat recomputes each layer in the backward pass
+    (layers.remat)."""
     x, _, n_heads, _ = _form(args, 0, n_heads)
+    recompute = isinstance(args[0], VisionConfig) and args[0].remat
     b, n_patches, d = x.shape
     cls = params["cls_token"].to(x.dtype).expand(b, 1, d)
     x = torch.cat([cls, x], dim=1)
     x = x + _interp_pos_embed(params["pos_embed"], n_patches).to(x.dtype)
     n_layers = params["layers"]["norm1"]["scale"].shape[0]
     for i in range(n_layers):
-        x = vit_block(layer_params(params["layers"], i), x, n_heads, impl)
+        x = remat(recompute, vit_block, layer_params(params["layers"], i), x,
+                  n_heads, impl)
     return layernorm(params["final_norm"], x)
 
 

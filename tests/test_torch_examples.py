@@ -76,3 +76,19 @@ def test_quickstart_prints_the_reference_accuracies():
 
     assert len(results(port.stdout)) == 4
     assert results(port.stdout) == results(ref.stdout)
+
+
+def test_train_lm_example_learns_on_cpu():
+    """`python -m repro_torch.examples.train_lm --steps 30 --device cpu`
+    (its default is 200 steps): the held-out loss ends below the loss at
+    init, and the temporary checkpoint directory is removed."""
+    proc = _run(["repro_torch.examples.train_lm", "--steps", "30",
+                 "--device", "cpu"], {})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("held-out loss")][-1]
+    final, init = float(line.split()[2]), float(line.split()[5].rstrip(";"))
+    assert final < init, line
+    ckpt_dir = proc.stdout.split("ckpt -> ")[1].splitlines()[0]
+    assert not os.path.exists(ckpt_dir)
+

@@ -115,7 +115,8 @@ def test_run_fleet_never_falls_back_to_cpu():
 
 def test_port_imports_no_jax():
     """Importing every repro_torch module (and chip_smoke.py) leaves no
-    jax or repro module loaded."""
+    jax, repro, msgpack or ml_dtypes module loaded (the checkpoints
+    carry their own msgpack subset and bf16 through int16)."""
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
                                   .with_suffix("").parts)
@@ -129,13 +130,17 @@ def test_port_imports_no_jax():
             "repro_torch.configs.vit_s16", "repro_torch.configs.vit_b16",
             "repro_torch.configs.vit_h14", "repro_torch.configs.swin_b",
             "repro_torch.configs.dit_l2", "repro_torch.configs.flux_dev",
-            "repro_torch.examples.quickstart"} <= set(mods)
+            "repro_torch.examples.quickstart",
+            "repro_torch.train.trainer", "repro_torch.train.checkpoint",
+            "repro_torch.train.compression", "repro_torch.train.elastic",
+            "repro_torch.train.fault", "repro_torch.launch.train",
+            "repro_torch.examples.train_lm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'jaxlib', 'repro.')) or m == 'repro']\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ("
+        "'jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')]\n"
         "print(len(sys.modules)); sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
