@@ -160,6 +160,25 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      and saved again byte-equal, then `--steps 10` resuming from it; one
      AdamW step of every SMOKE config (float32 and bf16) card vs CPU
      (tests/torch_train_inputs.py `check_step`);
+  8g. drive the sharding paths (PR 23), counters set to 0 just before
+     and read just after each: the main path's cell with
+     ShardSpec("debug") on a one-rank NCCL mesh (the four main-path
+     kernels once per step, chosen, frames_sent, accuracy and pred_acc
+     bit-equal to phase 5's unsharded run); the same fleet split over
+     two spawned processes sharing the card in a gloo group over a file
+     store (32 cameras each; the kernels once per step in each; the
+     gathered decisions equal to phase 5's, pred_acc and accuracy
+     within 1e-5); stablelm-3b's 32 layers in bf16 through
+     make_pipelined_forward (S = 1, 4 microbatches of [1, 2048],
+     dense_block with flash: 128 launches, each output bit-equal to the
+     layers in sequence); ring_reduce_attend at stablelm-3b's decode
+     shape against the plain full attention (float32 within 1e-5, bf16
+     within one ulp), psum_scatter_grads and ring_allgather identities
+     at one rank; stablelm-3b's bf16 parameters laid out by
+     param_shardings, saved, restored and laid out again bit-equal
+     (bytes and seconds); crosspod_allreduce_compressed over ViT-B/16's
+     float32 gradients (the dequantized gradient, within half a
+     quantization step of the exact one);
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -170,14 +189,16 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      path of phase 8b, for the search kernels `tables_graph_ms`,
      with `slice_launches` its launches on each path of phase 8c, and
      for flash_attention `lm_launches` and `lm_rows` from phase 8d
-     and `zoo_launches` and `zoo_rows` from phase 8e, and its
-     `train_launches` on each train path of phase 8f),
+     and `zoo_launches` and `zoo_rows` from phase 8e, its
+     `train_launches` on each train path of phase 8f and its
+     `shard_launches` on each path of phase 8g),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
 Imports torch, the port (src/repro_torch), tests/torch_zoo_weights.py
-(numpy-drawn zoo weights) and tests/torch_train_inputs.py (numpy-drawn
-train-step inputs and their comparison) only.
+(numpy-drawn zoo weights), tests/torch_train_inputs.py (numpy-drawn
+train-step inputs and their comparison) and tests/torch_dist.py (the
+spawned gloo ranks of phase 8g) only.
 """
 from __future__ import annotations
 
@@ -198,6 +219,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -211,8 +233,19 @@ from repro_torch.configs import (  # noqa: E402
 from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
 from repro_torch.core.tradeoff import BudgetConfig  # noqa: E402
 from repro_torch.data import SceneConfig, build_video  # noqa: E402
+from repro_torch.distributed.collectives import (  # noqa: E402
+    psum_scatter_grads,
+    ring_allgather,
+    ring_reduce_attend,
+)
+from repro_torch.distributed.pipeline import (  # noqa: E402
+    make_pipelined_forward,
+    split_stages,
+)
+from repro_torch.distributed.sharding import param_shardings  # noqa: E402
 from repro_torch.fleet.api import (  # noqa: E402
     FleetRunSpec,
+    ShardSpec,
     prepare_fleet_run,
     run_fleet,
 )
@@ -281,6 +314,7 @@ from repro_torch.learn.pairs import (  # noqa: E402
     teacher_window_targets,
 )
 from repro_torch.launch import serve as serve_module  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.learn.spec import DistillSpec  # noqa: E402
 from repro_torch.core import continual  # noqa: E402
 from repro_torch.core.distill import teacher_labels  # noqa: E402
@@ -354,7 +388,12 @@ from repro_torch.serving.engine import (  # noqa: E402
     InferenceEngine,
     run_fleet_detector_controller,
 )
+from repro_torch.models import attention as attention_module  # noqa: E402
+from repro_torch.models import layers as layers_module  # noqa: E402
+from repro_torch.models.transformer import dense_block  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_module  # noqa: E402
+from repro_torch.train import compression as compression_module  # noqa: E402
+from repro_torch.train.elastic import reshard  # noqa: E402
 from repro_torch.train import trainer as trainer_module  # noqa: E402
 from repro_torch.train.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch.train import synthetic_batch  # noqa: E402
@@ -367,6 +406,7 @@ from torch_zoo_weights import (  # noqa: E402
     perturb_numpy,
     smoke_outputs,
 )
+import torch_dist  # noqa: E402
 from torch_train_inputs import (  # noqa: E402
     TRAIN_ARCHS,
     check_step,
@@ -3547,6 +3587,338 @@ def train_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8g: sharding (PR 23)
+# ---------------------------------------------------------------------------
+
+SHARD_MICRO, SHARD_SEQ = 4, 2048     # pipeline: 4 microbatches [1, 2048]
+# ring_reduce_attend at stablelm-3b's decode shape: 4 requests, a cache of
+# 2048 prompt + 16 decoded positions, 32 heads of 80
+SHARD_DECODE = (4, LM_PROMPT + LM_CONT, 32, 80)
+# float32 ring vs the plain full attention: the same float32 products, the
+# softmax's sums over 2064 keys in another order, on outputs of order 1
+SHARD_ATTEND_ATOL = 1e-5
+# the two-process fleet's pred_acc: each rank's detector forward runs over
+# half the crops, where cuBLAS may take another algorithm (float32, TF32
+# off: sums in another order, round-off of scores in [0, 1])
+SHARD_PRED_ATOL = 1e-5
+SHARD_PROCS = 2
+
+
+def _shard_rank(rank, spec) -> dict:
+    """One process of phase 8g.2, a rank of tests/torch_dist.py's gloo
+    group (NCCL refuses two ranks on one device): half the fleet of
+    `spec` on cuda:0."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, counts = counted(lambda: run_fleet(dataclasses.replace(
+        spec, shard=ShardSpec("debug", n_data=SHARD_PROCS))))
+    return {"chosen": res.chosen, "frames_sent": res.frames_sent,
+            "accuracy": res.accuracy, "acc_per_step": res.acc_per_step,
+            "pred_acc": res.out.pred_acc.cpu().numpy(),
+            "steady_s": res.timings["steady_s"],
+            "compile_s": res.timings["compile_s"], "launches": counts}
+
+
+def _fleet_summary(result) -> dict:
+    return {"chosen": result.chosen, "frames_sent": result.frames_sent,
+            "accuracy": result.accuracy,
+            "acc_per_step": result.acc_per_step,
+            "pred_acc": result.out.pred_acc.cpu().numpy(),
+            "steady_s": result.timings["steady_s"]}
+
+
+def shard_fleet_one_rank(spec: FleetRunSpec, whole: dict) -> dict:
+    """8g.1: the main path's cell with ShardSpec("debug"): a 1 x 1 NCCL
+    mesh. Bit-equal to phase 5's unsharded run."""
+    res, counts = counted(lambda: run_fleet(dataclasses.replace(
+        spec, shard={"kind": "debug"})))
+    expect_launches(counts, {k: N_STEPS + 1 for k in MAIN_PATH_KERNELS},
+                    "sharded fleet, one rank")
+    got = _fleet_summary(res)
+    for k in ("chosen", "frames_sent", "accuracy", "acc_per_step"):
+        if got[k] != whole[k]:
+            raise AssertionError(f"sharded fleet, one rank: {k} differs "
+                                 f"from the unsharded run")
+    if not np.array_equal(got["pred_acc"], whole["pred_acc"]):
+        raise AssertionError("sharded fleet, one rank: pred_acc differs")
+    print(f"shard fleet, 1 rank (NCCL 1 x 1): accuracy={res.accuracy:.6f} "
+          f"(bit-equal to the unsharded run) steady_s="
+          f"{got['steady_s']:.3f} (unsharded {whole['steady_s']:.3f}) "
+          f"launches={counts}", flush=True)
+    return {"steady_s": got["steady_s"], "launches": counts}
+
+
+def shard_fleet_two_procs(spec: FleetRunSpec, whole: dict) -> dict:
+    """8g.2: the same fleet split over two processes sharing the card, a
+    gloo group over a file store (tests/torch_dist.spawn: spawned, as
+    this process has CUDA up). Decisions equal to the unsharded run's;
+    pred_acc within SHARD_PRED_ATOL."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = torch_dist.spawn(_shard_rank, SHARD_PROCS, tmp, spec).join()
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for rank, r in enumerate(got):
+        expect_launches(r["launches"],
+                        {k: N_STEPS + 1 for k in MAIN_PATH_KERNELS},
+                        f"sharded fleet, {SHARD_PROCS} processes, rank "
+                        f"{rank}")
+        if r["chosen"] != whole["chosen"] or \
+                r["frames_sent"] != whole["frames_sent"]:
+            raise AssertionError(f"{SHARD_PROCS} processes, rank {rank}: "
+                                 f"decisions differ from the unsharded run")
+        pred_err = float(np.abs(r["pred_acc"] - whole["pred_acc"]).max())
+        acc_err = abs(r["accuracy"] - whole["accuracy"])
+        if pred_err > SHARD_PRED_ATOL or acc_err > SHARD_PRED_ATOL:
+            raise AssertionError(f"{SHARD_PROCS} processes, rank {rank}: "
+                                 f"pred_acc {pred_err}, accuracy {acc_err}")
+        out[f"rank {rank}"] = {"steady_s": r["steady_s"],
+                               "compile_s": r["compile_s"],
+                               "pred_acc_err": pred_err,
+                               "accuracy_err": acc_err,
+                               "launches": r["launches"]}
+        print(f"shard fleet, {SHARD_PROCS} processes (gloo, "
+              f"{N_CAMERAS // SHARD_PROCS} cameras each on cuda:0), rank "
+              f"{rank}: decisions equal, "
+              f"accuracy={r['accuracy']:.6f} (err {acc_err:.2e}), pred_acc "
+              f"max err {pred_err:.2e}, steady_s={r['steady_s']:.3f} "
+              f"compile_s={r['compile_s']:.3f} launches={r['launches']}",
+              flush=True)
+    print(f"shard fleet, {SHARD_PROCS} processes: {wall:.1f} s with the "
+          f"processes' start", flush=True)
+    return out
+
+
+def shard_pipeline(dev, cfg, params, mesh) -> dict:
+    """8g.3: stablelm-3b's 32 layers (bf16, flash) through
+    make_pipelined_forward on the one-rank mesh, S = 1, M microbatches
+    of [1, SHARD_SEQ]; each output bit-equal to the layers run in
+    sequence on it; flash once per layer and microbatch."""
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 23)
+    toks = torch.randint(0, cfg.vocab, (SHARD_MICRO, 1, SHARD_SEQ),
+                         generator=gen, device=dev)
+    angles = attention_module.rope_frequencies(
+        cfg.resolved_head_dim, SHARD_SEQ, cfg.rope_theta, device=dev)
+
+    def body(lp, x, extra):
+        return dense_block(lp, x, cfg, extra, "flash")
+
+    fn = make_pipelined_forward(body, mesh, 1)
+    staged = split_stages(params["layers"], 1)
+    with torch.no_grad():
+        x = layers_module.embedding(params["embed"], toks)  # [M, 1, S, D]
+        piped, counts = counted(lambda: fn(staged, x, angles))
+
+        def sequential():
+            outs = []
+            for h in x:
+                for i in range(cfg.n_layers):
+                    h = body(layer_params(params["layers"], i), h, angles)
+                outs.append(h)
+            return torch.stack(outs)
+
+        seq = sequential()
+        expect_launches(counts, {"flash_attention": SHARD_MICRO
+                                 * cfg.n_layers}, "pipeline")
+        if not torch.equal(piped, seq):
+            raise AssertionError(f"pipeline: outputs differ from the "
+                                 f"sequential layers by "
+                                 f"{float((piped - seq).abs().max())}")
+        if not bool(torch.isfinite(piped).all()):
+            raise AssertionError("pipeline: non-finite outputs")
+        pipe_ms = cuda_ms(lambda: fn(staged, x, angles), 2) / SHARD_MICRO
+        seq_ms = cuda_ms(sequential, 2) / SHARD_MICRO
+    print(f"shard pipeline: stablelm-3b bf16, {cfg.n_layers} layers, S = 1, "
+          f"{SHARD_MICRO} microbatches of [1, {SHARD_SEQ}]: bit-equal to the "
+          f"layers in sequence; {pipe_ms:.2f} ms a microbatch (sequential "
+          f"{seq_ms:.2f}); launches={counts}", flush=True)
+    return {"ms_per_microbatch": pipe_ms, "sequential_ms": seq_ms,
+            "launches": counts}
+
+
+def shard_collectives(dev, mesh) -> dict:
+    """8g.4: ring_reduce_attend at stablelm-3b's decode shape against the
+    plain full attention (float32 within SHARD_ATTEND_ATOL; bf16 within
+    one bf16 ulp of the outputs' magnitude), psum_scatter_grads and
+    ring_allgather as identities on the one-rank NCCL group."""
+    b, s, h, d = SHARD_DECODE
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 24)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+    k = torch.randn((b, s, h, d), generator=gen, device=dev)
+    v = torch.randn((b, s, h, d), generator=gen, device=dev)
+    scale = 1.0 / math.sqrt(d)
+    grp = (mesh, "model")
+    grads = {"w": torch.randn((4096, 2560), generator=gen, device=dev),
+             "b": torch.randn((2560,), generator=gen, device=dev)}
+    x = torch.randn((8, 80), generator=gen, device=dev)
+    inputs = {name: (q.to(dt), k.to(dt), v.to(dt)) for name, dt in
+              (("float32", torch.float32), ("bf16", torch.bfloat16))}
+
+    def run():
+        return ({name: ring_reduce_attend(*a, grp, scale=scale)
+                 for name, a in inputs.items()},
+                psum_scatter_grads(grads, (mesh, "data")),
+                ring_allgather(x, grp))
+
+    (attended, scattered, gathered), launches = counted(run)
+    if launches:
+        raise AssertionError(f"collectives launched kernels: {launches}")
+    out = {}
+    for name, (qd, kd, vd) in inputs.items():
+        got = attended[name]
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qd.float(),
+                                       kd.float()) * scale, -1)
+        want = torch.einsum("bhqk,bkhd->bqhd", w, vd.float())
+        err = float((got.float() - want).abs().max())
+        if name == "float32":
+            tol = SHARD_ATTEND_ATOL
+        else:
+            tol = 2.0 ** (math.floor(math.log2(float(want.abs().max())))
+                          - 7)
+        if err > tol or got.dtype != qd.dtype:
+            raise AssertionError(f"ring_reduce_attend {name}: max err "
+                                 f"{err} > {tol}")
+        ms = cuda_ms(lambda: ring_reduce_attend(qd, kd, vd, grp,
+                                                scale=scale), 5)
+        out[name] = {"max_abs_err": err, "tol": tol, "ms": ms}
+    if not (all(torch.equal(scattered[n], grads[n]) for n in grads)
+            and torch.equal(gathered, x[None])):
+        raise AssertionError("psum_scatter_grads / ring_allgather are not "
+                             "identities at one rank")
+    print(f"shard collectives (NCCL, 1 rank): ring_reduce_attend q [{b}, 1, "
+          f"{h}, {d}], cache [{b}, {s}, {h}, {d}]: float32 max err "
+          f"{out['float32']['max_abs_err']:.2e} (tol {SHARD_ATTEND_ATOL}), "
+          f"{out['float32']['ms']:.3f} ms; bf16 max err "
+          f"{out['bf16']['max_abs_err']:.2e} (tol {out['bf16']['tol']}), "
+          f"{out['bf16']['ms']:.3f} ms; psum_scatter_grads and "
+          f"ring_allgather identities", flush=True)
+    return {"attend": out, "launches": launches}
+
+
+def shard_elastic(dev, params, mesh) -> dict:
+    """8g.5a: stablelm-3b's bf16 parameters laid out by param_shardings
+    on the one-rank mesh (DTensors), saved, restored and laid out again:
+    bit-equal. Bytes and seconds of each step."""
+    shardings = param_shardings(params, mesh)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            laid = timed("reshard_s", lambda: reshard(params, shardings))
+            timed("save_s", lambda: ckpt_module.save(tmp, 1, laid))
+            del laid
+            restored = timed("restore_s", lambda: ckpt_module.restore(
+                tmp, 1, params)[0])
+            return timed("reshard_again_s",
+                         lambda: reshard(restored, shardings))
+
+        back, launches = counted(run)
+        n_bytes = sum(f.stat().st_size
+                      for f in Path(tmp).rglob("*") if f.is_file())
+    flat_p = tree_leaves(params)
+    flat_b = tree_leaves(back)
+    if len(flat_p) != len(flat_b) or not all(
+            torch.equal(b.full_tensor(), p) for p, b in zip(flat_p, flat_b)):
+        raise AssertionError("elastic: the restored, resharded parameters "
+                             "differ from the saved ones")
+    if launches:
+        raise AssertionError(f"elastic launched kernels: {launches}")
+    print(f"shard elastic: stablelm-3b bf16 ({len(flat_p)} leaves) reshard "
+          f"{times['reshard_s']:.2f} s, save {times['save_s']:.2f} s "
+          f"({n_bytes / 1e9:.3f} GB), restore {times['restore_s']:.2f} s, "
+          f"reshard {times['reshard_again_s']:.2f} s: bit-equal", flush=True)
+    return {"bytes": n_bytes, **times, "launches": launches}
+
+
+def shard_compression(dev, mesh) -> dict:
+    """8g.5b: crosspod_allreduce_compressed over ViT-B/16's float32
+    gradient tree (batch 8) on the one-rank mesh: the mean is the
+    dequantized gradient; each leaf within half a quantization step of
+    the exact gradient."""
+    cfg = dataclasses.replace(get_config("vit-b16"), dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 25)
+    params = vit_module.vit_init(gen, cfg, device=dev)
+    images = torch.rand((8, cfg.img_res, cfg.img_res, 3), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, cfg.n_classes, (8,), generator=gen,
+                           device=dev)
+    _, grads = trainer_module.value_and_grad(
+        lambda p: vit_module.vit_loss(p, cfg, images, labels), params)
+    state = compression_module.init_ef(grads)
+    (mean, state), launches = counted(
+        lambda: compression_module.crosspod_allreduce_compressed(
+            grads, state, group=(mesh, "data")))
+    errs, worst = [], 0.0
+    for g, m in zip(tree_leaves(grads), tree_leaves(mean)):
+        if not torch.equal(m, compression_module.dequantize_int8(
+                *compression_module.quantize_int8(g))):
+            raise AssertionError("compression: the one-rank mean is not "
+                                 "the dequantized gradient")
+        step = max(float(g.abs().max()), 1e-12) / 127.0
+        err = float((m - g).abs().max())
+        errs.append(err)
+        worst = max(worst, err / step)
+    # round to nearest: half a step, plus the float32 rounding of the
+    # scaled value and of the product back
+    if worst > 0.5 + 1e-3 or launches:
+        raise AssertionError(f"compression: error {worst} quantization "
+                             f"steps, launches {launches}")
+    n = sum(g.numel() for g in tree_leaves(grads))
+    print(f"shard compression: ViT-B/16 float32 gradients ({n:,} elements, "
+          f"{len(errs)} leaves), one rank: max abs err {max(errs):.3e} "
+          f"against the exact gradient, at most {worst:.3f} of a leaf's "
+          f"quantization step (bound 0.5)", flush=True)
+    return {"max_abs_err": max(errs), "max_steps": worst,
+            "launches": launches}
+
+
+def shard_phase(dev, spec: FleetRunSpec, whole: dict) -> dict:
+    """Phase 8g. Returns each path's numbers and kernel launches."""
+    t0 = time.perf_counter()
+    out = {"fleet 1 rank": shard_fleet_one_rank(spec, whole)}
+    mesh = make_debug_mesh()
+    out[f"fleet {SHARD_PROCS} processes"] = shard_fleet_two_procs(spec,
+                                                                  whole)
+    cfg = get_config(LM_DENSE_ARCH)
+    params = lm_init(torch.Generator(device=dev).manual_seed(LM_SEED + 22),
+                     cfg, dev)
+    with exact_bf16():
+        out["pipeline"] = shard_pipeline(dev, cfg, params, mesh)
+    out["collectives"] = shard_collectives(dev, mesh)
+    out["elastic"] = shard_elastic(dev, params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    out["compression"] = shard_compression(dev, mesh)
+    dist.destroy_process_group()      # the one-rank group 8g.1 made
+    out["seconds"] = time.perf_counter() - t0
+    print(f"shard phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def shard_launches(shard: dict, name: str) -> dict:
+    """A kernel's launches on each path of phase 8g, each counted from 0
+    (the two processes' per rank)."""
+    counts = {}
+    for label, r in shard.items():
+        if isinstance(r, dict) and "launches" in r:
+            counts[label] = r["launches"].get(name, 0)
+        elif isinstance(r, dict):
+            for sub, rr in r.items():
+                if isinstance(rr, dict) and "launches" in rr:
+                    counts[f"{label}, {sub}"] = rr["launches"].get(name, 0)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3584,6 +3956,7 @@ def main() -> int:
     rows["oracle_pass"] = oracle_phase(oracle_calls)
     rows.update(search_phase(calls))
     frozen_s = main_result.timings["steady_s"]
+    whole = _fleet_summary(main_result)
     del main_result
     # the learning path: head-only (the paper's mode) at the cell's
     # depth; full-param at 3 steps, cut in depth only to keep the
@@ -3618,6 +3991,8 @@ def main() -> int:
     zoo = zoo_phase(dev)
     torch.cuda.empty_cache()
     trained = train_phase(dev)
+    torch.cuda.empty_cache()
+    shard = shard_phase(dev, spec, whole)
     torch.cuda.empty_cache()
     stage_phase(spec, DistillSpec())
 
@@ -3661,6 +4036,8 @@ def main() -> int:
             # launches a kernel: the losses run the plain attention)
             "train_launches": {label: c.get(name, 0)
                                for label, c in trained["launches"].items()},
+            # phase 8g: the sharding paths, each counted from 0
+            "shard_launches": shard_launches(shard, name),
             **lm_extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

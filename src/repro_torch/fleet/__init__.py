@@ -4,6 +4,7 @@ from repro_torch.fleet.api import (
     DEFAULT_QUERIES,
     FleetResult,
     FleetRunSpec,
+    ShardSpec,
     available_providers,
     prepare_fleet_run,
     register_provider,
@@ -17,6 +18,7 @@ from repro_torch.fleet.runner import (
     make_tables_provider,
     materialize_scene_tables,
     run_fleet_episode,
+    shard_fleet,
 )
 from repro_torch.fleet.state import (
     FleetConfig,

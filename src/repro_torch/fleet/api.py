@@ -18,7 +18,10 @@
 
 `metrics` turns on the in-episode FleetMetrics (`result.metrics`) and
 `distill` the in-episode distillation of the detector (`result
-.distill_loss`, `result.learned_params(camera)`).
+.distill_loss`, `result.learned_params(camera)`). `shard` (a
+`ShardSpec`) or an explicit `mesh=` splits the fleet's cameras over the
+mesh's `data` ranks: each rank runs its slice, and every rank returns the
+whole fleet's result (fleet/runner.run_fleet_episode).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 without a card they raise rather than fall back to the CPU.
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.core import DEFAULT_GRID, OrientationGrid, Query, Workload
 from repro_torch.core.tradeoff import BudgetConfig
+from repro_torch.distributed.collectives import gather_fleet
 from repro_torch.fleet.runner import (
     episode_step,
     make_detector_provider,
@@ -44,6 +48,7 @@ from repro_torch.fleet.runner import (
     resolve_device,
     run_fleet_episode,
     save_detector_params,
+    shard_fleet,
 )
 from repro_torch.fleet.state import (
     FleetConfig,
@@ -55,6 +60,7 @@ from repro_torch.fleet.state import (
     workload_spec,
 )
 from repro_torch.fleet.step import FleetStepOut
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.learn.spec import DistillSpec, normalize_distill
 from repro_torch.models.layers import full_float32
 from repro_torch.obs.metrics import MetricsSpec, normalize_metrics
@@ -72,8 +78,7 @@ DEFAULT_QUERIES = (
 
 @runtime_checkable
 class ObservationProvider(Protocol):
-    """What the episode loop needs from an observation source (the
-    reference's protocol but `shard`: sharding is not ported)."""
+    """What the episode loop needs from an observation source."""
 
     @property
     def n_steps(self) -> int:
@@ -91,6 +96,13 @@ class ObservationProvider(Protocol):
     def observe(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
                 state: FleetState, xs):
         """(carry, state, xs) -> (new carry, FleetObs) for one step."""
+        ...
+
+    def shard(self, mesh):
+        """This rank's slice of the fleet-axis leaves: the cameras at
+        its coordinate on the mesh `data` axis. (A sharded episode also
+        calls the provider's `gather_carry(carry, gather)` to make its
+        final carry whole again; the shipped providers have it.)"""
         ...
 
 
@@ -140,6 +152,35 @@ def _jsonable(x):
 
 
 @dataclass(frozen=True)
+class ShardSpec:
+    """Mesh placement for the fleet axis, as data: `build_mesh` resolves
+    to a launch/mesh.py mesh, and the episode splits the cameras over its
+    `data` axis.
+
+    kind "none" runs unsharded; "debug" builds an n_data x n_model mesh
+    over the world's ranks (one rank: a group the call makes itself);
+    "production" builds the 256-rank pod mesh (multi_pod=True: 2 pods)."""
+    kind: str = "none"
+    n_data: int = 1
+    n_model: int = 1
+    multi_pod: bool = False
+
+    def build_mesh(self, device=None):
+        """The mesh, or None for kind "none"; `device` as
+        `devices.resolve_device` (the card unless "cpu")."""
+        if self.kind == "none":
+            return None
+        if self.kind == "debug":
+            return mesh_mod.make_debug_mesh(self.n_data, self.n_model,
+                                            device=device)
+        if self.kind == "production":
+            return mesh_mod.make_production_mesh(self.multi_pod,
+                                                 device=device)
+        raise ValueError(f"unknown ShardSpec.kind {self.kind!r} "
+                         f"(none | debug | production)")
+
+
+@dataclass(frozen=True)
 class FleetRunSpec:
     """Everything that defines one fleet experiment, declaratively; the
     same fields and JSON as the reference package's spec."""
@@ -151,9 +192,9 @@ class FleetRunSpec:
     budget: dict = field(default_factory=dict)  # BudgetConfig overrides
     grid: dict = field(default_factory=dict)    # OrientationGrid overrides
     provider_kwargs: dict = field(default_factory=dict)
-    # mesh placement of the fleet axis, as the reference's ShardSpec
-    # fields (not ported: only None or kind "none" runs)
-    shard: dict | None = None
+    # mesh placement of the fleet axis; a dict is normalized to the
+    # dataclass, so the spec JSON stays the reference's
+    shard: ShardSpec | None = None
     # how many of the N*Z windows each camera renders + scores per step
     # (detector provider; None = exhaustive)
     shortlist_k: int | None = None
@@ -171,6 +212,8 @@ class FleetRunSpec:
         object.__setattr__(
             self, "workload",
             tuple(tuple(q) for q in self.workload))
+        if isinstance(self.shard, dict):
+            object.__setattr__(self, "shard", ShardSpec(**self.shard))
         object.__setattr__(self, "metrics", normalize_metrics(self.metrics))
         object.__setattr__(self, "distill", normalize_distill(self.distill))
 
@@ -190,7 +233,7 @@ class FleetRunSpec:
                      grid: OrientationGrid | None = None,
                      workload: Workload | None = None,
                      budget: BudgetConfig | None = None,
-                     shard: dict | None = None,
+                     shard: ShardSpec | None = None,
                      shortlist_k: int | None = None,
                      metrics: MetricsSpec | bool | None = None,
                      distill: Any = None,
@@ -226,7 +269,8 @@ class FleetRunSpec:
 @dataclass
 class PreparedFleetRun:
     """A spec resolved to runnable pieces: provider built, configs
-    derived, tensors on `device`. `episode()` runs the step loop."""
+    derived, tensors on `device`, the mesh (None: unsharded).
+    `episode()` runs the step loop."""
     spec: FleetRunSpec
     cfg: FleetConfig
     wl: WorkloadSpec
@@ -235,25 +279,27 @@ class PreparedFleetRun:
     provider: Any
     device: torch.device
     build_s: float
+    mesh: Any = None
 
     def episode(self, provider=None, state=None):
-        """Run the episode with spec.metrics: `run_fleet_episode`'s
-        (state, out, extras, carry)."""
+        """Run the episode with spec.metrics on the mesh:
+        `run_fleet_episode`'s (state, out, extras, carry), whole-fleet
+        on every rank."""
         return run_fleet_episode(
             self.cfg, self.wl, self.statics,
             self.state if state is None else state,
             self.provider if provider is None else provider,
-            metrics=self.spec.metrics)
+            mesh=self.mesh, metrics=self.spec.metrics)
 
 
-def prepare_fleet_run(spec: FleetRunSpec, *, device=None
+def prepare_fleet_run(spec: FleetRunSpec, *, mesh=None, device=None
                       ) -> PreparedFleetRun:
-    """Resolve a FleetRunSpec: registry lookup and provider
-    construction — everything up to (but not including) the episode."""
-    if spec.shard is not None and spec.shard.get("kind") != "none":
-        raise NotImplementedError("sharded fleets are not ported to this "
-                                  "package")
+    """Resolve a FleetRunSpec: registry lookup, provider construction
+    and the mesh — everything up to (but not including) the episode. An
+    explicit `mesh` overrides spec.shard."""
     dev = resolve_device(device)
+    if mesh is None and spec.shard is not None:
+        mesh = spec.shard.build_mesh(dev)
     grid = spec.grid_obj()
     workload = spec.workload_obj()
     cfg = fleet_config(grid, spec.budget_obj())
@@ -274,7 +320,7 @@ def prepare_fleet_run(spec: FleetRunSpec, *, device=None
     return PreparedFleetRun(
         spec=spec, cfg=cfg, wl=workload_spec(workload),
         statics=fleet_statics(grid, dev), state=state, provider=provider,
-        device=dev, build_s=build_s)
+        device=dev, build_s=build_s, mesh=mesh)
 
 
 @dataclass
@@ -350,7 +396,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
+def run_fleet(spec: FleetRunSpec, *, mesh=None, device=None
+              ) -> FleetResult:
     """THE fleet entry point: spec in, typed result out.
 
     Runs on the CUDA card unless `device="cpu"`. It turns TF32 off
@@ -362,23 +409,35 @@ def run_fleet(spec: FleetRunSpec, *, device=None) -> FleetResult:
     timings["steady_s"] the whole episode
     after it; `camera_steps_per_s` is computed from steady_s. The
     episode runs under torch.no_grad(); the distillation update takes
-    its gradients with torch.func, which that does not switch off."""
+    its gradients with torch.func, which that does not switch off.
+
+    Sharded (spec.shard, or `mesh`, which overrides it): every rank of
+    the mesh calls run_fleet with the same spec; the warm-up step runs
+    on the rank's own cameras and gathers once over the data group (the
+    communicator is set up there), steady_s covers the rank's episode
+    and its gather, and every rank returns the whole fleet's result."""
     with full_float32():
-        return _run_fleet(spec, device)
+        return _run_fleet(spec, mesh, device)
 
 
-def _run_fleet(spec: FleetRunSpec, device) -> FleetResult:
-    prep = prepare_fleet_run(spec, device=device)
+def _run_fleet(spec: FleetRunSpec, mesh, device) -> FleetResult:
+    prep = prepare_fleet_run(spec, mesh=mesh, device=device)
     dev = prep.device
     mspec = spec.metrics
+    state, provider = prep.state, prep.provider
+    if prep.mesh is not None:
+        state, provider = shard_fleet(state, prep.mesh), provider.shard(
+            prep.mesh)
 
     with torch.no_grad():
         t0 = time.perf_counter()
         with span("fleet/compile", provider=spec.provider,
                   metrics=mspec is not None):
-            episode_step(prep.cfg, prep.wl, prep.statics, prep.state,
-                         prep.provider, prep.provider.init_carry(prep.state),
-                         0, metrics=mspec)
+            episode_step(prep.cfg, prep.wl, prep.statics, state, provider,
+                         provider.init_carry(state), 0, metrics=mspec)
+            if prep.mesh is not None:
+                # a group's first collective sets up its communicator
+                gather_fleet(state, prep.mesh.get_group("data"))
             _sync(dev)
         compile_s = time.perf_counter() - t0
 

@@ -32,10 +32,21 @@ that owns a carry (`init_carry`), per-step inputs (`scan_xs`, leading
 
 `materialize_scene_tables` records a scene episode's observation stream
 (the `collect_obs` extra) as EpisodeTables the tables path replays.
+
+The fleet axis splits over a mesh `data` axis (launch/mesh.py) through
+each provider's `shard` hook: the fleet-shared EpisodeTables stay whole
+(a per-camera [E, F] link trace is cut), scene state and parameters
+are cut with the fleet, the detector's parameters stay whole. Each rank
+runs the episode on its own cameras, and one gather per episode makes
+every output whole again (`run_fleet_episode(mesh=...)`). That is exact
+because no stage reads across cameras: per-camera keys, per-camera
+learned heads, row-wise kernels. The hand-written kernels have no
+DTensor sharding rules, which is why the episode runs on plain local
+tensors rather than DTensors.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +60,8 @@ from repro_torch.core.tradeoff import BudgetConfig
 from repro_torch.core.transport import ar1_mobile_trace
 from repro_torch.data import SceneConfig, build_video
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.collectives import gather_fleet
+from repro_torch.distributed.sharding import tree_leaves, tree_map_with_path
 from repro_torch.fleet.state import (
     FleetConfig,
     FleetState,
@@ -60,6 +73,7 @@ from repro_torch.fleet.state import (
 )
 from repro_torch.fleet.step import FleetObs, FleetStepOut, fleet_step
 from repro_torch.kernels.crop_patchify.ops import crop_patchify
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.learn.loop import (
     distill_step,
     init_learn,
@@ -110,6 +124,28 @@ _TABLE_FIELDS = ("counts", "areas", "centroid", "spread", "extent",
                  "nbox", "acc_true")
 
 
+def shard_fleet(tree, mesh, axis: int = 0):
+    """This rank's contiguous slice of every leaf's fleet axis (`axis`,
+    length F): [F / n_data] cameras at the rank's coordinate on the mesh
+    `data` axis (views, no copy). Ranks that differ only in `model` hold
+    the same cameras. F must divide by n_data."""
+    n = mesh_shape(mesh)["data"]
+    f = tree_leaves(tree)[0].shape[axis]
+    if f % n:
+        raise ValueError(f"{f} cameras do not split evenly over the mesh's "
+                         f"{n} data ranks")
+    i = mesh.get_local_rank("data")
+    cut = (slice(None),) * axis + (slice(i * (f // n), (i + 1) * (f // n)),)
+    return tree_map_with_path(lambda _, x: x[cut], tree)
+
+
+def _shard_link(x: torch.Tensor, mesh) -> torch.Tensor:
+    """An [E] fleet-shared link trace stays whole; an [E, F] per-camera
+    one is cut to this rank's cameras, or they would read other cameras'
+    links."""
+    return x if x.dim() == 1 else shard_fleet(x, mesh, axis=1)
+
+
 class EpisodeTables(NamedTuple):
     """Host-built observation substrate on the run's device; every leaf
     leads with [E] steps and has no fleet axis: the whole fleet watches
@@ -144,6 +180,15 @@ class EpisodeTables(NamedTuple):
         *tabs, mbps, rtt = xs
         return carry, FleetObs(*(x.expand((f,) + x.shape) for x in tabs),
                                mbps=mbps, rtt=rtt)
+
+    def shard(self, mesh):
+        # the fleet-shared tables stay whole
+        return self._replace(mbps=_shard_link(self.mbps, mesh),
+                             rtt=_shard_link(self.rtt, mesh))
+
+    def gather_carry(self, carry, gather):
+        """The carry (empty) as it is."""
+        return carry
 
 
 @dataclass(frozen=True)
@@ -188,6 +233,18 @@ class SceneProvider:
         mbps_t, rtt_t = xs
         sc, o = self.oracle(cfg, wl, carry, state)
         return sc, FleetObs(*o, mbps=mbps_t, rtt=rtt_t)
+
+    def shard(self, mesh):
+        # scene state and parameters are cut with the fleet; the teacher
+        # constants and windows are shared
+        return replace(self, state0=shard_fleet(self.state0, mesh),
+                       params=shard_fleet(self.params, mesh),
+                       mbps=_shard_link(self.mbps, mesh),
+                       rtt=_shard_link(self.rtt, mesh))
+
+    def gather_carry(self, carry, gather):
+        """The carry (scene state) whole again, through `gather`."""
+        return gather(carry)
 
 
 def shortlist_windows(cfg: FleetConfig, state: FleetState,
@@ -432,6 +489,18 @@ class DetectorProvider:
                              "provider (distill=None runs frozen)")
         _, dp, lc = carry
         return merged_params(self.distill, dp, lc.params, camera)
+
+    def shard(self, mesh):
+        # the scene is cut with the fleet; the detector parameters (and
+        # the grid's neighbour mask) are shared. With distillation on, the
+        # per-camera learning state starts from the cut state (init_carry)
+        return replace(self, scene=self.scene.shard(mesh))
+
+    def gather_carry(self, carry, gather):
+        """Scene state and learning state whole again; the shared
+        detector parameters as they are."""
+        sc, dp, *lc = carry
+        return (gather(sc), dp, *(gather(x) for x in lc))
 
 
 def _scatter_dets(dets, widx, c: int):
@@ -798,7 +867,7 @@ def episode_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
 
 def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
                       statics: FleetStatics, state: FleetState, provider,
-                      *, metrics=None, collect_obs: bool = False):
+                      *, mesh=None, metrics=None, collect_obs: bool = False):
     """The episode: E controller steps carrying (state, provider carry).
 
     Returns (final state, FleetStepOut with leaves stacked [E, F, ...],
@@ -809,9 +878,22 @@ def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
     (DetectorProvider with distill set), whose final carry holds the
     learned params (provider.learned_params(final_carry)). Prefer
     `repro_torch.fleet.api.run_fleet(spec)` unless composing
-    providers/state yourself."""
+    providers/state yourself.
+
+    With `mesh`, every rank of the mesh calls this with the same whole
+    `state` and `provider`: the rank runs the episode on its cameras
+    (`shard_fleet`, the provider's `shard` hook), then all-gathers over
+    the mesh's `data` group every output with a fleet axis — the final
+    state, the step outputs, metrics, learn extras and the carry's
+    per-camera trees — so every rank returns what the unsharded call
+    returns."""
     if metrics is not None and not metrics.enabled:
         metrics = None
+    if mesh is not None:
+        if collect_obs:
+            raise ValueError("collect_obs records camera 0 of an unsharded "
+                             "episode; run it without a mesh")
+        state, provider = shard_fleet(state, mesh), provider.shard(mesh)
     carry = provider.init_carry(state)
     outs, exs = [], []
     for e in range(provider.n_steps):
@@ -824,6 +906,13 @@ def run_fleet_episode(cfg: FleetConfig, wl: WorkloadSpec,
     out = FleetStepOut(*(torch.stack(v) for v in zip(*outs)))
     ex = {name: {k: torch.stack([x[name][k] for x in exs])
                  for k in exs[0][name]} for name in exs[0]} if exs else {}
+    if mesh is not None:
+        group = mesh.get_group("data")
+        state = gather_fleet(state, group)
+        out = gather_fleet(out, group, axis=1)
+        ex = gather_fleet(ex, group, axis=1)
+        carry = provider.gather_carry(
+            carry, lambda tree: gather_fleet(tree, group))
     return state, out, ex, carry
 
 

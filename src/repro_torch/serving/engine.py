@@ -133,10 +133,10 @@ def fleet_step(state: ewma.EWMAState, counts: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _controller_episode(spec: FleetRunSpec, mesh, device):
-    if mesh is not None:
-        raise NotImplementedError("sharded fleets (mesh=) are not ported "
-                                  "to this package")
-    prep = prepare_fleet_run(spec, device=device)
+    """The episode of `spec`, split over `mesh`'s data ranks when one is
+    given (every rank of it calls this; each returns the whole fleet's
+    outputs)."""
+    prep = prepare_fleet_run(spec, mesh=mesh, device=device)
     with span("engine/fleet_controller", provider=spec.provider), \
             torch.no_grad(), full_float32():
         state, out, ex, carry = prep.episode()

@@ -33,6 +33,7 @@ import struct
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.devices import resolve_device
 
@@ -248,13 +249,47 @@ def _process_count() -> int:
 # save / latest / restore / prune
 # ---------------------------------------------------------------------------
 
+def _whole(tree):
+    """`tree` with every DTensor leaf gathered to its full tensor
+    (`full_tensor()`, a collective over the leaf's mesh)."""
+    leaves = [x.full_tensor() if isinstance(x, DTensor) else x
+              for _, x in tree_flatten_with_paths(tree)]
+    return _rebuild(tree, iter(leaves))
+
+
 def save(ckpt_dir: str, step: int, tree, *, process_index: int = 0,
          extra: dict | None = None) -> str:
-    """Atomically write one checkpoint. Returns the final directory."""
+    """Atomically write one checkpoint. Returns the final directory.
+
+    Leaves may be DTensors: each is written whole. With a process group
+    initialized, every rank of the world calls save — the gather of a
+    DTensor is a collective — only rank 0 writes, and all meet at a
+    barrier before it publishes the directory, and again after, so that
+    no rank returns before the checkpoint exists."""
+    tree = _whole(tree)
+    dist = torch.distributed
+    ranks = dist.is_available() and dist.is_initialized()
+    writer = not ranks or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + f".tmp-{process_index}"
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        _write(tmp, step, tree, process_index, extra)
+    if ranks:
+        dist.barrier()
+    if writer:
+        # atomic publish
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    if ranks:
+        dist.barrier()
+    return final
 
+
+def _write(tmp: str, step: int, tree, process_index: int,
+           extra: dict | None) -> None:
+    """The shard and the manifest of one checkpoint, into `tmp`."""
+    os.makedirs(tmp, exist_ok=True)
     flat = tree_flatten_with_paths(tree)
     paths = [p for p, _ in flat]
     meta = {}
@@ -279,12 +314,6 @@ def save(ckpt_dir: str, step: int, tree, *, process_index: int = 0,
     }
     with open(os.path.join(tmp, MANIFEST), "w") as f:
         json.dump(manifest, f)
-    # atomic publish (one process; a multi-process run rendezvous before
-    # its coordinator renames)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:

@@ -7,16 +7,18 @@ compressor is a contraction and convergence is kept.
     deq = decompress(qs, scales)        # what crosses the slow link
 
 The int8 payload is a quarter of float32's bytes and half of bf16's.
-The all-reduce over the slow axis that carries it (the reference's
-`crosspod_allreduce_compressed`) belongs with the port's sharding, which
-is not ported yet.
+`crosspod_allreduce_compressed` averages the dequantized gradients over
+the slow axis (`pod`): the mean of per-pod quantized gradients, each
+pod's quantization error kept in its own EF state.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.collectives import resolve_group
 from repro_torch.train.optim import tree_map
 
 
@@ -63,3 +65,22 @@ def compress(grads, state: EFState):
 
 def decompress(qs, scales):
     return tree_map(dequantize_int8, qs, scales)
+
+
+def crosspod_allreduce_compressed(grads, state: EFState, *, group):
+    """EF-compressed mean over `group` (a ProcessGroup, or a (DeviceMesh,
+    dim name) pair such as (mesh, "pod")).
+
+    As the reference: each rank compresses its gradients with error
+    feedback and dequantizes them; the all-reduce SUM carries those
+    float32 values (what the reference's psum carries), and the sum is
+    divided by the group size. Returns (mean tree, new EFState)."""
+    g = resolve_group(group)
+    qs, scales, state = compress(grads, state)
+    deq = decompress(qs, scales)
+    n = dist.get_world_size(g)
+
+    def mean(x):
+        dist.all_reduce(x, group=g)
+        return x / n
+    return tree_map(mean, deq), state

@@ -288,7 +288,9 @@ def test_detector_controller_matches_run_fleet(distill):
 
 
 def test_controller_refuses_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """mesh= reaches the episode (sharded runs: tests/test_torch_fleet_
+    shard.py); what is not a mesh is refused."""
+    with pytest.raises(TypeError, match="mesh"):
         teng.run_fleet_scene_controller(DEFAULT_GRID, WORKLOAD, BUDGET,
                                         n_cameras=1, n_steps=1,
                                         mesh=object(), device="cpu")

@@ -90,13 +90,14 @@ def test_result_json_round_trip():
 
 
 def test_unported_options_raise():
-    """Sharding is not ported; metrics and distillation are
-    (tests/test_torch_learn.py), the tables provider too
-    (tests/test_torch_tables.py), the unfused detector path too
-    (tests/test_torch_unfused.py), and distillation on a provider
-    without a per-window model is refused as in the reference."""
-    with pytest.raises((NotImplementedError, KeyError)):
-        t_run_fleet(TSpec(shard={"kind": "debug"}), device="cpu")
+    """Every option is ported now — sharding (tests/test_torch_fleet_
+    shard.py), metrics and distillation (tests/test_torch_learn.py), the
+    tables provider (tests/test_torch_tables.py), the unfused detector
+    path (tests/test_torch_unfused.py) — and what the reference refuses
+    is refused: an unknown ShardSpec kind, distillation on a provider
+    without a per-window model."""
+    with pytest.raises(ValueError, match="ShardSpec.kind"):
+        t_run_fleet(TSpec(shard={"kind": "warp"}), device="cpu")
     with pytest.raises(TypeError):
         t_run_fleet(TSpec(n_cameras=1, n_steps=1,
                           distill={"enabled": True}), device="cpu")
@@ -134,7 +135,11 @@ def test_port_imports_no_jax():
             "repro_torch.train.trainer", "repro_torch.train.checkpoint",
             "repro_torch.train.compression", "repro_torch.train.elastic",
             "repro_torch.train.fault", "repro_torch.launch.train",
-            "repro_torch.examples.train_lm"} <= set(mods)
+            "repro_torch.examples.train_lm",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
