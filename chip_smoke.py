@@ -179,6 +179,19 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      (bytes and seconds); crosspod_allreduce_compressed over ViT-B/16's
      float32 gradients (the dequantized gradient, within half a
      quantization step of the exact one);
+  8h. drive the launchers in a subprocess of its own
+     (`chip_smoke.py --phase-8h`, alone: `tools/launch_phase.py`; its
+     "fake" process group must not meet 8g's): dry runs
+     (`repro_torch.launch.dryrun.run_cell`) of stablelm-3b decode_32k
+     and vit-b16 serve_b128 on the fake (16, 16) mesh with fake tensors
+     on the card, their JSON printed; then build_cell's fn for vit-b16
+     serve_b128, dit-l2 gen_fast and vit-b16 cls_384 on a one-rank NCCL
+     mesh with numpy-drawn weights, counters set to 0 just before and
+     read just after (no kernel: the cells run impl="xla"):
+     FlopCounterMode's count of each real run equal to the dry run's on
+     a 1 x 1 mesh, outputs finite; ms on DTensors and on plain tensors,
+     achieved TFLOP/s, torch.cuda.max_memory_allocated beside the dry
+     run's bytes_per_device;
   9. time one step of the main path stage by stage (the scene advance
      and the oracle pass apart), then its learn stage: scoring through
      per-camera heads, teacher targets, ring harvest and the update,
@@ -190,8 +203,9 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      with `slice_launches` its launches on each path of phase 8c, and
      for flash_attention `lm_launches` and `lm_rows` from phase 8d
      and `zoo_launches` and `zoo_rows` from phase 8e, its
-     `train_launches` on each train path of phase 8f and its
-     `shard_launches` on each path of phase 8g),
+     `train_launches` on each train path of phase 8f, its
+     `shard_launches` on each path of phase 8g and its
+     `launch_launches` on each real run of phase 8h),
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
@@ -221,6 +235,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -243,6 +259,9 @@ from repro_torch.distributed.pipeline import (  # noqa: E402
     split_stages,
 )
 from repro_torch.distributed.sharding import param_shardings  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    tree_leaves as tree_leaves_nt,
+)
 from repro_torch.fleet.api import (  # noqa: E402
     FleetRunSpec,
     ShardSpec,
@@ -314,7 +333,9 @@ from repro_torch.learn.pairs import (  # noqa: E402
     teacher_window_targets,
 )
 from repro_torch.launch import serve as serve_module  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.learn.spec import DistillSpec  # noqa: E402
 from repro_torch.core import continual  # noqa: E402
 from repro_torch.core.distill import teacher_labels  # noqa: E402
@@ -550,6 +571,14 @@ TRAIN_SEED = 0
 # expected); held to 1e-6 of each gradient leaf's largest in case a
 # library picks another algorithm for the recomputed graph
 TRAIN_REMAT_REL = 1e-6
+# the launchers: dry runs on the fake (16, 16) mesh with fake
+# tensors on the card; real runs of build_cell's fn on a one-rank NCCL
+# mesh, numpy weights, beside the dry run on a 1 x 1 mesh
+LAUNCH_DRY_CELLS = [("stablelm-3b", "decode_32k"), ("vit-b16", "serve_b128")]
+LAUNCH_REAL_CELLS = [("vit-b16", "serve_b128"), ("dit-l2", "gen_fast"),
+                     ("vit-b16", "cls_384")]
+LAUNCH_SEED = 24
+LAUNCH_TIMEOUT_S = 300
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
 
@@ -3919,6 +3948,120 @@ def shard_launches(shard: dict, name: str) -> dict:
     return counts
 
 
+def _finite(tree) -> bool:
+    return all(bool(torch.isfinite(t.full_tensor() if hasattr(
+        t, "full_tensor") else t).all()) for t in tree_leaves_nt(tree)
+        if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+
+def launch_real(arch: str, shape: str, mesh, dry: dict, dev) -> dict:
+    """build_cell's fn at (arch, shape) on the one-rank mesh, weights and
+    inputs drawn by numpy (make_args), laid out by its in_shardings:
+    FlopCounterMode's count of the run must equal the 1 x 1 dry run's;
+    then the step timed on the DTensor args and on the plain tensors
+    (one call each after the counted one)."""
+    cell = build_cell(arch, shape, mesh)
+    t0 = time.perf_counter()
+    plain = cell.make_args(np.random.default_rng(LAUNCH_SEED), dev)
+    args = reshard(plain, cell.in_shardings)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    with implicit_replication(), FlopCounterMode(display=False) as fc:
+        out = cell.fn(*args)
+    torch.cuda.synchronize()
+    launches = _lib.launch_counts()
+    flops = fc.get_total_flops()
+    peak = torch.cuda.max_memory_allocated()
+    if flops != dry["flops"]:
+        raise AssertionError(f"launch {arch} x {shape}: real run counts "
+                             f"{flops} FLOPs, the dry run {dry['flops']}")
+    if not _finite(out):
+        raise AssertionError(f"launch {arch} x {shape}: non-finite output")
+    del out
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        del r
+        return (time.perf_counter() - t) * 1e3
+
+    with implicit_replication():
+        dt_ms = timed(lambda: cell.fn(*args))
+    plain_ms = timed(lambda: cell.fn(*plain))
+    r = {"flops": flops, "dry_flops": dry["flops"], "init_s": init_s,
+         "dtensor_ms": dt_ms, "plain_ms": plain_ms,
+         "tflops_plain": flops / plain_ms / 1e9,
+         "tflops_dtensor": flops / dt_ms / 1e9,
+         "max_memory_allocated": peak,
+         "dry_bytes_per_device": dry["bytes_per_device"],
+         "launches": {k: v for k, v in launches.items() if v}}
+    print(f"launch real {arch} x {shape}: flops {flops:.4e} (= dry run), "
+          f"{plain_ms:.2f} ms plain ({r['tflops_plain']:.1f} TFLOP/s), "
+          f"{dt_ms:.2f} ms on DTensors ({r['tflops_dtensor']:.1f} "
+          f"TFLOP/s), peak {peak / 2**30:.3f} GiB vs dry "
+          f"bytes_per_device {dry['bytes_per_device'] / 2**30:.3f} GiB, "
+          f"numpy init {init_s:.1f} s", flush=True)
+    del args, plain
+    torch.cuda.empty_cache()
+    return r
+
+
+def launch_body() -> dict:
+    """Phase 8h's body, in a process of its own (`chip_smoke.py
+    --phase-8h`): (a) dry runs of LAUNCH_DRY_CELLS on the "fake" world's
+    (16, 16) mesh with fake tensors on the card, and of
+    LAUNCH_REAL_CELLS on a 1 x 1 mesh of it; the fake group torn down;
+    (b) each real cell on a one-rank NCCL mesh (launch_real). Counters
+    set to 0 just before each real run and read just after: no kernel
+    lies on these paths (impl="xla", as the reference's)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {"dry": {}, "one": {}, "real": {}}
+    dryrun.fake_world()
+    for arch, shape in LAUNCH_DRY_CELLS:
+        r = dryrun.run_cell(arch, shape, device=dev, verbose=False)
+        print(f"launch dry {json.dumps(r)}", flush=True)
+        out["dry"][f"{arch}|{shape}"] = r
+    one = dryrun.one_rank_mesh(dev)
+    for arch, shape in LAUNCH_REAL_CELLS:
+        out["one"][f"{arch}|{shape}"] = dryrun.run_cell(
+            arch, shape, mesh=one, device=dev, verbose=False)
+    dist.destroy_process_group()
+    out["dry_s"] = time.perf_counter() - t0
+    mesh = make_debug_mesh()
+    for arch, shape in LAUNCH_REAL_CELLS:
+        out["real"][f"{arch}|{shape}"] = launch_real(
+            arch, shape, mesh, out["one"][f"{arch}|{shape}"], dev)
+    dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def launch_phase() -> dict:
+    """Phase 8h: launch_body in a subprocess (its fake process group
+    must not meet phase 8g's); returns its numbers and each real run's
+    launches (all must be 0)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phase-8h"],
+        capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S)
+    for line in proc.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 8h failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.splitlines()[-1])
+    for label, r in out["real"].items():
+        expect_launches(r["launches"], {}, f"launch {label}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"launch phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3994,6 +4137,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard = shard_phase(dev, spec, whole)
     torch.cuda.empty_cache()
+    launched = launch_phase()
     stage_phase(spec, DistillSpec())
 
     kernels = []
@@ -4038,6 +4182,11 @@ def main() -> int:
                                for label, c in trained["launches"].items()},
             # phase 8g: the sharding paths, each counted from 0
             "shard_launches": shard_launches(shard, name),
+            # phase 8h: the launchers' real runs, each counted from 0
+            # (none launches a kernel: the cells run impl="xla")
+            "launch_launches": {
+                label: r["launches"].get(name, 0)
+                for label, r in launched["real"].items()},
             **lm_extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
@@ -4048,4 +4197,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase-8h"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is available")
+        print(json.dumps(launch_body(), default=str), flush=True)
+        sys.exit(0)
     sys.exit(main())

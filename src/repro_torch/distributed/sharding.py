@@ -29,10 +29,14 @@ and no environment is read.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 from dataclasses import dataclass
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
 
 from repro_torch.launch.mesh import axis_names, mesh_shape
 
@@ -285,3 +289,189 @@ def kvcache_shardings(cache_tree, mesh, *, sequence_parallel: bool = False):
 
 def replicated(tree, mesh):
     return tree_map_with_path(lambda _, __: NamedSharding(mesh, ()), tree)
+
+
+def local_shape(shape: tuple, placements, mesh) -> tuple:
+    """The shape of rank 0's shard of a tensor of `shape` laid out by
+    `placements` on `mesh` (a dim split unevenly: its largest shard)."""
+    out = list(shape)
+    for size, p in zip(mesh.shape, placements):
+        if p.is_shard():
+            out[p.dim] = -(-out[p.dim] // size)
+    return tuple(out)
+
+
+def activation_sharding(mesh, shape: tuple, spec: tuple) -> NamedSharding:
+    """The layout of an activation of `shape` by `spec` (one entry a
+    dim: None, "data" for the DP axes, or a mesh axis name), as the
+    reference's `constrain_spec` resolves it: an entry whose axis the
+    mesh lacks, or whose axes do not divide the dim, leaves the dim
+    whole, as does a dim of size 1 (DTensor will not fold a sharded
+    dim of size 1 into another)."""
+    names = axis_names(mesh)
+    out = []
+    for dim, entry in zip(shape, spec):
+        axis = dp_axes(mesh) if entry == "data" else entry
+        if axis is None or dim == 1 or any(a not in names for a in (
+                axis if isinstance(axis, tuple) else (axis,))) \
+                or not _fits(dim, mesh, axis):
+            out.append(None)
+        else:
+            out.append(_entry(axis))
+    return NamedSharding(mesh, tuple(out))
+
+
+# ---------------------------------------------------------------------------
+# Collectives a run issues (roofline: collective bytes per rank)
+# ---------------------------------------------------------------------------
+
+# the functional collectives DTensor's redistributions lower to, by the
+# reference's HLO op names
+_COLLECTIVE_KINDS = {
+    "_c10d_functional::all_gather_into_tensor": "all-gather",
+    "_c10d_functional::all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::all_reduce_coalesced": "all-reduce",
+    "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional::reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional::all_to_all_single": "all-to-all",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
+}
+
+
+def _nbytes(out) -> int:
+    return sum(t.numel() * t.element_size() for t in _pytree_leaves(out)
+               if isinstance(t, torch.Tensor))
+
+
+def _has_dtensor(args, kwargs) -> bool:
+    return any(isinstance(t, DTensor) for t in _pytree_leaves((args,
+                                                               kwargs)))
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """Within the block, records (kind, output bytes) of every
+    collective that the local tensors of DTensors issue, in `record`.
+
+    An op on DTensors is left to DTensor (NotImplemented), whose
+    redistributions and local ops then come back through this mode on
+    plain local tensors: the collectives are the functional ones
+    (`_c10d_functional`) and DTensor's shard-to-shard all-to-all. On a
+    CPU mesh DTensor lowers that all-to-all to an all-gather and a
+    chunk; it is recorded as the one all-to-all it stands for (output
+    bytes: the chunk). DTensor's sharding propagation, which runs ops
+    on stand-ins of the global shapes, is not the rank's work and is
+    not seen. Subclasses see every local op through `local_op` (with
+    `quiet` set inside the two DTensor internals) and each tensor the
+    all-to-all returns through `_hold`."""
+
+    def __init__(self):
+        super().__init__()
+        self.record: list = []
+        self._inner = 0
+        self._depth = 0
+        self._patch = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _has_dtensor(args, kwargs):
+            return NotImplemented
+        return self.local_op(func, args, kwargs)
+
+    @property
+    def quiet(self) -> bool:
+        return self._inner > 0
+
+    def local_op(self, func, args, kwargs):
+        out = func(*args, **kwargs)
+        kind = _COLLECTIVE_KINDS.get(func.name().split(".")[0])
+        if kind and not self.quiet:
+            self.record.append((kind, _nbytes(out)))
+        return out
+
+    def _hold(self, t: torch.Tensor) -> None:
+        """A tensor the rank now holds (LocalCosts tracks them)."""
+
+    def __enter__(self):
+        if self._depth == 0:
+            self._patch = contextlib.ExitStack()
+            self._patch.enter_context(_alltoall_as_one(self))
+            self._patch.enter_context(_quiet_propagation(self))
+        self._depth += 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._depth -= 1
+            if self._depth == 0:
+                self._patch.close()
+
+
+@contextlib.contextmanager
+def _alltoall_as_one(rec: CollectiveRecorder):
+    """Wraps DTensor's shard_dim_alltoall (looked up by name in
+    `placement_types` when a Shard moves dims) so that its CPU lowering
+    records one all-to-all, not the all-gather inside it."""
+    from torch.distributed.tensor import placement_types as pt
+
+    orig = getattr(pt, "shard_dim_alltoall", None)
+    if orig is None:
+        yield
+        return
+
+    def wrapped(input, *args, **kwargs):
+        rec._inner += 1
+        try:
+            out = orig(input, *args, **kwargs)
+        finally:
+            rec._inner -= 1
+        rec.record.append(("all-to-all", _nbytes(out)))
+        rec._hold(out)
+        return out
+
+    pt.shard_dim_alltoall = wrapped
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = orig
+
+
+@contextlib.contextmanager
+def _quiet_propagation(rec: CollectiveRecorder):
+    """Marks DTensor's sharding propagation on stand-in tensors of the
+    global shapes (ShardingPropagator's tensor-meta pass) as quiet."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    name = "_propagate_tensor_meta_non_cached"
+    orig = getattr(ShardingPropagator, name, None)
+    if orig is None:
+        yield
+        return
+
+    def wrapped(self, *args, **kwargs):
+        rec._inner += 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            rec._inner -= 1
+
+    setattr(ShardingPropagator, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
+def collective_bytes(record) -> dict:
+    """Sum the output bytes per rank of every collective in a run's
+    record ((kind, bytes) pairs, `CollectiveRecorder.record`). Returns
+    {kind: bytes} under the reference's kinds (all-gather, all-reduce,
+    reduce-scatter, all-to-all, collective-permute), those the run
+    issued. The reference parses the compiled HLO's collectives; here
+    they are recorded as they are dispatched (no HLO text exists)."""
+    out: dict = {}
+    for kind, n in record:
+        out[kind] = out.get(kind, 0) + int(n)
+    return out

@@ -17,12 +17,17 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import activation_sharding
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (
     Params,
+    batch_rows,
+    constrain_spec,
     linear,
     linear_init,
+    per_shard,
     rmsnorm,
     rmsnorm_init,
 )
@@ -96,10 +101,56 @@ def sdpa_chunked(q, k, v, *, causal: bool = False, q_offset: int = 0,
         for i in range(0, sq, chunk)], dim=1)
 
 
+def _heads_axis(mesh, *heads: int):
+    """"model" when the mesh's model axis divides every head count."""
+    return "model" if all(
+        activation_sharding(mesh, (h,), ("model",)).spec[0]
+        for h in heads) else None
+
+
+def split_heads(t: torch.Tensor, n_heads: int,
+                head_dim: int = -1) -> torch.Tensor:
+    """[B, S, n_heads * Dh] -> [B, S, n_heads, Dh]. On a mesh t is first
+    laid out batch over the DP axes and features over `model` only where
+    it divides n_heads, so the split is even (DTensor refuses an uneven
+    one)."""
+    if isinstance(t, DTensor):
+        t = constrain_spec(t, ("data", None,
+                               _heads_axis(t.device_mesh, n_heads)))
+    return t.reshape(t.shape[0], t.shape[1], n_heads, head_dim)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, Dh] -> [B, S, H * Dh]; on a mesh laid out as
+    split_heads lays its input out (and the gradient alike, so its
+    split in the backward pass is even)."""
+    y = o.reshape(o.shape[0], o.shape[1], -1)
+    if isinstance(y, DTensor):
+        y = constrain_spec(y, ("data", None,
+                               _heads_axis(y.device_mesh, o.shape[2])))
+    return y
+
+
 def sdpa(q, k, v, *, causal: bool = False, bias=None, q_offset: int = 0,
          impl: str = "xla", scale: float | None = None) -> torch.Tensor:
+    """Attention over q/k [B, Sq|Sk, Hq|Hkv, D], v [B, Sk, Hkv, Dv]. On
+    DTensors it runs per shard: batch over the DP axes and heads over
+    `model` where they divide (`layers.per_shard`)."""
     if impl not in ("xla", "flash"):
         raise ValueError(f"impl must be 'xla' or 'flash', got {impl!r}")
+    if isinstance(q, DTensor):
+        heads = _heads_axis(q.device_mesh, q.shape[2], k.shape[2])
+        spec = ("data", None, heads, None)
+        b_spec = None
+        if bias is not None:
+            b_spec = ("data" if bias.shape[0] == q.shape[0] else None,
+                      heads if bias.shape[1] == k.shape[2] else None,
+                      None, None, None)
+        return per_shard(
+            lambda q_, k_, v_, b_: sdpa(q_, k_, v_, causal=causal,
+                                        bias=b_, q_offset=q_offset,
+                                        impl=impl, scale=scale),
+            (q, k, v, bias), (spec, spec, spec, b_spec))
     if impl == "flash" and bias is None:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          q_offset=q_offset, scale=scale)
@@ -128,10 +179,10 @@ def gqa_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
 
 
 def gqa_qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int):
-    b, s, _ = x.shape
-    q = linear(p["wq"], x).reshape(b, s, n_heads, -1)
-    k = linear(p["wk"], x).reshape(b, s, n_kv_heads, -1)
-    v = linear(p["wv"], x).reshape(b, s, n_kv_heads, -1)
+    x = batch_rows(x)
+    q = split_heads(linear(p["wq"], x), n_heads)
+    k = split_heads(linear(p["wk"], x), n_kv_heads)
+    v = split_heads(linear(p["wv"], x), n_kv_heads)
     return q, k, v
 
 
@@ -153,7 +204,7 @@ def gqa_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     b, s, _ = x.shape
     q, k, v = gqa_qkv_rope(p, x, n_heads, n_kv_heads, angles)
     o = sdpa(q, k, v, causal=causal, impl=impl)
-    return linear(p["wo"], o.reshape(b, s, -1))
+    return linear(p["wo"], merge_heads(o))
 
 
 # ---------------------------------------------------------------------------
@@ -188,19 +239,20 @@ def mla_project(p: Params, x: torch.Tensor, *, n_heads: int,
     """x [B, S, D] -> (q, k [B, S, H, nope + rope], v [B, S, H, v_head],
     kv_lat [B, S, lora], k_rope [B, S, 1, rope]): the latents and the
     per-head keys and values expanded from them."""
+    x = batch_rows(x)
     b, s, _ = x.shape
     qk_head_dim = qk_nope_dim + qk_rope_dim
 
     q_lat = rmsnorm(p["q_a_norm"], linear(p["wq_a"], x))
-    q = linear(p["wq_b"], q_lat).reshape(b, s, n_heads, qk_head_dim)
+    q = split_heads(linear(p["wq_b"], q_lat), n_heads, qk_head_dim)
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
 
     kv_a = linear(p["wkv_a"], x)
     kv_lat = rmsnorm(p["kv_a_norm"], kv_a[..., :kv_lora_rank])
     k_rope = kv_a[..., kv_lora_rank:].reshape(b, s, 1, qk_rope_dim)
 
-    kv = linear(p["wkv_b"], kv_lat).reshape(b, s, n_heads,
-                                            qk_nope_dim + v_head_dim)
+    kv = split_heads(linear(p["wkv_b"], kv_lat), n_heads,
+                     qk_nope_dim + v_head_dim)
     k_nope, v = kv[..., :qk_nope_dim], kv[..., qk_nope_dim:]
 
     if angles is not None:
@@ -236,7 +288,7 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
         o = o[..., :v_head_dim]
     else:
         o = sdpa(q, k, v, causal=causal, impl="xla", scale=scale)
-    return linear(p["wo"], o.reshape(b, s, n_heads * v_head_dim))
+    return linear(p["wo"], merge_heads(o))
 
 
 # ---------------------------------------------------------------------------
@@ -285,14 +337,15 @@ def window_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     Runs the plain biased attention whatever `impl` is, as the
     reference's does (the flash kernel takes no bias)."""
     nwb, t, c = x.shape
-    q = linear(p["wq"], x).reshape(nwb, t, n_heads, -1)
-    k = linear(p["wk"], x).reshape(nwb, t, n_heads, -1)
-    v = linear(p["wv"], x).reshape(nwb, t, n_heads, -1)
+    x = batch_rows(x)
+    q = split_heads(linear(p["wq"], x), n_heads)
+    k = split_heads(linear(p["wk"], x), n_heads)
+    v = split_heads(linear(p["wv"], x), n_heads)
     bias = None
     if rel_bias is not None:
         bias = rel_bias[None, :, None]          # [1, H, 1, T, T]
     if mask is not None:
         m = mask.repeat(nwb // mask.shape[0], 1, 1)[:, None, None]
         bias = m if bias is None else bias + m
-    o = sdpa_xla(q, k, v, causal=False, bias=bias)
-    return linear(p["wo"], o.reshape(nwb, t, c))
+    o = sdpa(q, k, v, causal=False, bias=bias)
+    return linear(p["wo"], merge_heads(o))

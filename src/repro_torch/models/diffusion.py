@@ -11,6 +11,7 @@ the integer timesteps are the reference's (for up to 352 steps).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import DiffusionConfig
@@ -37,16 +38,20 @@ def linspace_f32(start: float, stop: float, num: int,
     step, the last entry stop. Bit-equal for num <= 352; past that
     XLA's vector loop contracts 1 - i * (1 / div) into a fused
     multiply-add, which moves some entries by an ulp."""
-    f32 = torch.float32
-    lo = torch.tensor(start, dtype=f32, device=device)
-    hi = torch.tensor(stop, dtype=f32, device=device)
+    return torch.as_tensor(_linspace_f32_np(start, stop, num),
+                           device=device)
+
+
+def _linspace_f32_np(start: float, stop: float, num: int) -> np.ndarray:
+    """linspace_f32's values on the host, each op rounded to float32."""
+    f32 = np.float32
+    lo, hi = f32(start), f32(stop)
     if num == 1:
-        return lo[None]
+        return np.array([lo], f32)
     div = num - 1
-    recip = torch.tensor(1.0, dtype=f32) / torch.tensor(float(div),
-                                                        dtype=f32)
-    step = torch.arange(div, dtype=f32, device=device) * recip.item()
-    return torch.cat([lo * (1 - step) + hi * step, hi[None]])
+    step = np.arange(div, dtype=f32) * (f32(1.0) / f32(div))
+    return np.concatenate([lo * (f32(1) - step) + hi * step, [hi]]
+                          ).astype(f32)
 
 
 def ddpm_schedule(n_steps: int = 1000, beta_0: float = 1e-4,
@@ -63,7 +68,7 @@ def ddim_timesteps(n_steps: int, train_steps: int = 1000) -> list[int]:
     """The sampler's integer timesteps, train_steps - 1 down to 0:
     `jnp.linspace(train_steps - 1, 0, n_steps).astype(int32)` (float32
     values truncated)."""
-    return [int(v) for v in linspace_f32(train_steps - 1, 0, n_steps)]
+    return [int(v) for v in _linspace_f32_np(train_steps - 1, 0, n_steps)]
 
 
 def _device(params) -> torch.device:

@@ -19,6 +19,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Params,
+    batch_rows,
+    constrain_spec,
     conv_init,
     layer_params,
     linear,
@@ -69,7 +71,9 @@ def dit_block_init(gen, cfg: DiffusionConfig, device=None) -> Params:
 
 def dit_block(p: Params, x: torch.Tensor, c: torch.Tensor,
               cfg: DiffusionConfig) -> torch.Tensor:
-    """x [B, T, D]; c [B, D] conditioning."""
+    """x [B, T, D]; c [B, D] conditioning. On a mesh x enters laid out
+    batch over the DP axes."""
+    x = constrain_spec(x, ("data", None, None))
     mod = linear(p["ada"], silu(c))[:, None, :]        # [B, 1, 6D]
     sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
     h = modulated_layernorm({}, x, sh1, sc1)
@@ -116,7 +120,7 @@ def time_condition(params: Params, dtype, t: torch.Tensor) -> torch.Tensor:
 def unpatchify(x: torch.Tensor, g: int, patch: int, c: int) -> torch.Tensor:
     """[B, g*g, p*p*C] -> [B, g*p, g*p, C]."""
     b = x.shape[0]
-    x = x.reshape(b, g, g, patch, patch, c).permute(0, 1, 3, 2, 4, 5)
+    x = batch_rows(x).reshape(b, g, g, patch, patch, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, g * patch, g * patch, c)
 
 

@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.devices import resolve_device
@@ -30,13 +31,21 @@ from repro_torch.models.layers import (
     layer_params,
     linear,
     mlp,
+    per_shard,
     rmsnorm,
+    zeros_laid_out,
 )
 from repro_torch.models import moe
 from repro_torch.models.moe_lm import mla_dims, n_moe_layers
 from repro_torch.models.transformer import lm_head
+from repro_torch.train.trainer import TensorSpec
 
 CACHE_DTYPE = torch.bfloat16
+
+# a prefill's cache on a mesh (distributed/sharding.kvcache_shardings):
+# batch over the DP axes, GQA's kv heads over `model` where they divide
+_GQA_SPEC = (None, "data", None, "model", None)
+_MLA_SPEC = (None, "data", None, None)
 
 
 class GQACache(NamedTuple):
@@ -74,6 +83,20 @@ def init_mla_cache(cfg: LMConfig, batch: int, max_seq: int,
         0)
 
 
+def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
+                dtype=CACHE_DTYPE):
+    """The cache's shapes and dtypes, nothing allocated (the dry run's):
+    a GQACache or MLACache of `TensorSpec`s, `length` a [] int32 spec as
+    in the reference (a real cache holds a host int there)."""
+    length = TensorSpec((), torch.int32)
+    lead = (cfg.n_layers, batch, max_seq)
+    if cfg.mla:
+        return MLACache(TensorSpec(lead + (cfg.kv_lora_rank,), dtype),
+                        TensorSpec(lead + (cfg.qk_rope_dim,), dtype), length)
+    s = TensorSpec(lead + (cfg.n_kv_heads, cfg.resolved_head_dim), dtype)
+    return GQACache(s, s, length)
+
+
 def _layers(params: Params, cfg: LMConfig) -> list:
     """Every layer's parameters in order: a dense LM's stacked layers, or
     an MoE LM's dense layers then its stacked MoE layers."""
@@ -109,9 +132,42 @@ def _position_angles(dim: int, max_seq: int, length: int, cfg: LMConfig,
 # GQA: masked decode attention over a cache slice, prefill, decode
 # ---------------------------------------------------------------------------
 
+def _write(cache: torch.Tensor, pos: int, value: torch.Tensor) -> None:
+    """cache[:, pos] = value (cache [B, S_max, ...], value [B, ...]) in
+    the cache's dtype. A cache whose sequence axis is sharded over
+    `model` is written in its shards: every rank lays the value out
+    batch as the cache is, the rank holding position pos writes it."""
+    if not (isinstance(cache, DTensor)
+            and any(p.is_shard(1) for p in cache.placements)):
+        cache[:, pos] = value.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    whole = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in cache.placements]
+    if isinstance(value, DTensor):
+        value = value.redistribute(mesh, whole).to_local()
+    local = cache.to_local()
+    s = local.shape[1]
+    at = pos - mesh.get_local_rank(mesh.mesh_dim_names.index("model")) * s
+    if 0 <= at < s:
+        local[:, at] = value.to(local.dtype)
+
+
 def _decode_attend(q, k_cache, v_cache, length: int, scale: float):
     """q [B, 1, Hq, D]; k/v [B, S, Hkv, D]; attends to positions <=
-    length (the new token's)."""
+    length (the new token's). On DTensors it runs per shard: batch
+    over the DP axes and heads over `model` where they divide, or, for a
+    sequence-sharded cache, `_decode_attend_split`."""
+    if isinstance(k_cache, DTensor) and any(
+            p.is_shard(1) for p in k_cache.placements):
+        return _decode_attend_split(q, k_cache, v_cache, length, scale)
+    if isinstance(k_cache, DTensor):
+        heads = attn._heads_axis(k_cache.device_mesh, q.shape[2],
+                                 k_cache.shape[2])
+        spec = ("data", None, heads, None)
+        return per_shard(
+            lambda q_, k_, v_: _decode_attend(q_, k_, v_, length, scale),
+            (q, k_cache, v_cache), (spec, spec, spec))
     b, s, hkv, d = k_cache.shape
     hq = q.shape[2]
     qg = q.float().reshape(b, 1, hkv, hq // hkv, d)
@@ -123,6 +179,40 @@ def _decode_attend(q, k_cache, v_cache, length: int, scale: float):
     return o.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def _decode_attend_split(q, k_cache, v_cache, length: int, scale: float):
+    """_decode_attend over a cache whose sequence axis is sharded over
+    `model` (sequence parallelism): each rank attends its slice of the
+    positions (masked by their global index) and the softmax is combined
+    across the slices, a max and two sums over `model` (the split-S
+    softmax GSPMD makes of the reference's masked softmax)."""
+    mesh = k_cache.device_mesh
+    mdim = mesh.mesh_dim_names.index("model")
+    whole = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in k_cache.placements]
+    ql = q.redistribute(mesh, whole).to_local() \
+        if isinstance(q, DTensor) else q
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    b, s, hkv, d = kl.shape
+    hq = ql.shape[2]
+
+    def combine(t, op):
+        pl = [Partial(op) if i == mdim else p for i, p in enumerate(whole)]
+        return DTensor.from_local(t, mesh, pl, run_check=False
+                                  ).redistribute(mesh, whole).to_local()
+
+    qg = ql.float().reshape(b, 1, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kl.float()) * scale
+    pos = torch.arange(s, device=kl.device) + mesh.get_local_rank(mdim) * s
+    logits = torch.where(pos <= length, logits, -1e30)
+    m = combine(logits.amax(-1, keepdim=True), "max")
+    w = torch.exp(logits - m)
+    denom = combine(w.sum(-1, keepdim=True), "sum")     # [B, Hkv, G, 1, 1]
+    o = combine(torch.einsum("bhgqk,bkhd->bqhgd", w, vl.float()), "sum")
+    o = o / denom.permute(0, 3, 1, 2, 4)
+    return DTensor.from_local(o.reshape(b, 1, hq, d).to(ql.dtype), mesh,
+                              whole, run_check=False)
+
+
 def _gqa_block_decode(lp: Params, x, k_cache, v_cache, length: int,
                       cfg: LMConfig, angles_pos):
     """One block's attention at decode, then its MLP or MoE; writes the
@@ -131,13 +221,13 @@ def _gqa_block_decode(lp: Params, x, k_cache, v_cache, length: int,
     b = x.shape[0]
     dh = cfg.resolved_head_dim
     h = rmsnorm(lp["attn_norm"], x)
-    q = linear(lp["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, dh)
-    k = linear(lp["attn"]["wk"], h).reshape(b, 1, cfg.n_kv_heads, dh)
-    v = linear(lp["attn"]["wv"], h).reshape(b, 1, cfg.n_kv_heads, dh)
+    q = attn.split_heads(linear(lp["attn"]["wq"], h), cfg.n_heads, dh)
+    k = attn.split_heads(linear(lp["attn"]["wk"], h), cfg.n_kv_heads, dh)
+    v = attn.split_heads(linear(lp["attn"]["wv"], h), cfg.n_kv_heads, dh)
     q = attn.apply_rope(q, angles_pos)
     k = attn.apply_rope(k, angles_pos)
-    k_cache[:, length] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, length] = v[:, 0].to(v_cache.dtype)
+    _write(k_cache, length, k[:, 0])
+    _write(v_cache, length, v[:, 0])
     o = _decode_attend(q, k_cache, v_cache, length, 1.0 / math.sqrt(dh))
     x = x + linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
     return _moe_or_mlp(lp, x, cfg)
@@ -175,7 +265,10 @@ def _gqa_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     x = embedding(params["embed"], tokens)
     angles = attn.rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
                                    device=x.device)
-    cache = init_gqa_cache(cfg, b, max_seq, device=x.device)
+    shape = (cfg.n_layers, b, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    cache = GQACache(*(zeros_laid_out(x, shape, _GQA_SPEC, CACHE_DTYPE)
+                       for _ in range(2)), 0)
     for i, lp in enumerate(_layers(params, cfg)):
         h = rmsnorm(lp["attn_norm"], x)
         q, k, v = attn.gqa_qkv_rope(lp["attn"], h, cfg.n_heads,
@@ -223,7 +316,7 @@ def _mla_block_decode(lp: Params, x, kv_lat_cache, k_rope_cache,
     h = rmsnorm(lp["attn_norm"], x)
 
     q_lat = rmsnorm(ap["q_a_norm"], linear(ap["wq_a"], h))
-    q = linear(ap["wq_b"], q_lat).reshape(b, 1, hn, nope + rope)
+    q = attn.split_heads(linear(ap["wq_b"], q_lat), hn, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = attn.apply_rope(q_rope, angles_pos[:, :rope // 2])
 
@@ -232,8 +325,8 @@ def _mla_block_decode(lp: Params, x, kv_lat_cache, k_rope_cache,
     k_rope_new = attn.apply_rope(
         kv_a[..., lora:].reshape(b, 1, 1, rope), angles_pos[:, :rope // 2]
     ).reshape(b, rope)
-    kv_lat_cache[:, length] = kv_lat[:, 0].to(kv_lat_cache.dtype)
-    k_rope_cache[:, length] = k_rope_new.to(k_rope_cache.dtype)
+    _write(kv_lat_cache, length, kv_lat[:, 0])
+    _write(k_rope_cache, length, k_rope_new)
 
     # weight absorption: wkv_b [lora, H * (nope + vd)] split into K and V
     wkvb = ap["wkv_b"]["w"].reshape(lora, hn, nope + vd).float()
@@ -281,7 +374,12 @@ def mla_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     x = embedding(params["embed"], tokens)
     angles = attn.rope_frequencies(cfg.qk_rope_dim, s, cfg.rope_theta,
                                    device=x.device)
-    cache = init_mla_cache(cfg, b, max_seq, device=x.device)
+    lead = (cfg.n_layers, b, max_seq)
+    cache = MLACache(
+        zeros_laid_out(x, lead + (cfg.kv_lora_rank,), _MLA_SPEC,
+                       CACHE_DTYPE),
+        zeros_laid_out(x, lead + (cfg.qk_rope_dim,), _MLA_SPEC, CACHE_DTYPE),
+        0)
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     for i, lp in enumerate(_layers(params, cfg)):
         h = rmsnorm(lp["attn_norm"], x)

@@ -18,9 +18,12 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.sharding import activation_sharding, local_shape
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
 from repro_torch.train.optim import tree_leaves, tree_map
 
@@ -32,6 +35,14 @@ Params = dict
 # or a numpy Generator)
 # ---------------------------------------------------------------------------
 
+def shape_only(device=None) -> bool:
+    """True where tensors carry no values: `device` is the meta device,
+    or a FakeTensorMode is active."""
+    if device is not None and torch.device(device).type == "meta":
+        return True
+    return torch._guards.detect_fake_mode() is not None
+
+
 def trunc_normal(gen, shape, std: float = 0.02, device=None,
                  dtype=torch.float32) -> torch.Tensor:
     """Truncated normal draw. A torch.Generator goes through
@@ -39,9 +50,14 @@ def trunc_normal(gen, shape, std: float = 0.02, device=None,
     differ between PyTorch versions; a numpy Generator
     (np.random.default_rng) gives the same weights under any PyTorch
     (standard normals, those past +-2 drawn again, times std). std 0
-    gives zeros and draws nothing."""
+    gives zeros and draws nothing. On the meta device, or under an
+    active FakeTensorMode, nothing is drawn: the result holds the shape,
+    dtype and device only (the dry run's parameters, as
+    `jax.eval_shape` gives the reference's)."""
     if std == 0:
         return torch.zeros(shape, device=device, dtype=dtype)
+    if shape_only(device):
+        return torch.empty(shape, device=device, dtype=dtype)
     if isinstance(gen, np.random.Generator):
         z = gen.standard_normal(shape)
         out = np.abs(z) > 2.0
@@ -146,8 +162,67 @@ def full_float32():
 # layers
 # ---------------------------------------------------------------------------
 
+def _rows_mergeable(x: torch.Tensor) -> torch.Tensor:
+    """A product flattens x's leading dims into rows, and DTensor's
+    products cannot take two sharded dims merged into one: on a mesh,
+    the middle dims of x (neither the batch nor the features) are made
+    whole first, and the batch dim too where its sharding is strided or
+    uneven or the dim has size 1 (DTensor will not fold a sharded dim of
+    size 1 away). Plain tensors pass unchanged."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return x
+    mesh = x.device_mesh
+    ways = 1
+    for size, p in zip(mesh.shape, x.placements):
+        if p.is_shard(0):
+            ways *= size
+    uneven = x.shape[0] % ways != 0 or x.shape[0] == 1
+    drop = [p.is_shard() and p.dim < x.ndim - 1 and (
+        p.dim > 0 or uneven or isinstance(p, _StridedShard))
+        for p in x.placements]
+    if not any(drop):
+        return x
+    return x.redistribute(mesh, [
+        Replicate() if d else p for d, p in zip(drop, x.placements)])
+
+
+class _MergeableRows(torch.autograd.Function):
+    """_rows_mergeable on the value and on its gradient (a product's
+    backward flattens the gradient of its output into rows too)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _rows_mergeable(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_mergeable(g)
+
+
+def _fence(x: torch.Tensor) -> torch.Tensor:
+    return _MergeableRows.apply(x) if isinstance(x, DTensor) else x
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w. On a mesh (x a DTensor of 3 or more dims) the product is
+    taken on x's rows flattened, and its result's rows laid out as x's
+    before they unflatten (DTensor may shard the rows of a product over
+    an axis that does not divide x's batch dim), fenced both ways."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return x @ w
+    lead = x.shape[:-1]
+    x2 = _fence(x).reshape(-1, x.shape[-1])
+    y2 = x2 @ w
+    rows = [px if px.is_shard(0) else (Replicate() if py.is_shard(0)
+                                       else py)
+            for px, py in zip(x2.placements, y2.placements)]
+    if list(rows) != list(y2.placements):
+        y2 = y2.redistribute(y2.device_mesh, rows)
+    return _fence(y2.reshape(*lead, y2.shape[-1]))
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = _matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -201,6 +276,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """down(act(up(x))): GELU, or SwiGLU (silu(gate(x)) * up(x)) where
     the parameters hold a gate."""
+    x = batch_rows(x)
     h = linear(p["up"], x)
     if "gate" in p:
         h = silu(linear(p["gate"], x)) * h
@@ -218,12 +294,13 @@ def patch_embed(images: torch.Tensor, wflat: torch.Tensor,
     The one definition of the embed, shared by `vit_embed` and the plain
     crop -> token stage, so pixels and fused crops embed to equal
     tokens."""
+    images = batch_rows(images)
     b, h, w, c = images.shape
     gh, gw = h // patch, w // patch
     tiles = images[:, :gh * patch, :gw * patch].reshape(
         b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5).reshape(
         b, gh * gw, patch * patch * c)
-    tok = torch.matmul(tiles, wflat)
+    tok = _matmul(tiles, wflat)
     return tok if bias is None else tok + bias
 
 
@@ -240,7 +317,11 @@ def resize_grid(grid: torch.Tensor, g_new: int) -> torch.Tensor:
     """Bilinear-resize a learned square grid of embeddings [1, g*g, D]
     to [1, g_new*g_new, D], antialiased when it shrinks, as
     jax.image.resize's "bilinear" is: the one resize behind the ViT's
-    and DiT's off-grid pos_embed."""
+    and DiT's off-grid pos_embed. On a mesh it runs per shard (each
+    channel is resized alone; DTensor has no rule for the resize)."""
+    if isinstance(grid, DTensor):
+        return per_shard(lambda t: resize_grid(t, g_new), (grid,),
+                         ((None, None, "data"),))
     g_old = grid_side(grid.shape[1], "pos_embed")
     x = grid.reshape(1, g_old, g_old, -1).permute(0, 3, 1, 2)
     x = F.interpolate(x.float(), size=(g_new, g_new), mode="bilinear",
@@ -271,6 +352,91 @@ def conv2d(p: Params, x: torch.Tensor, *, stride: int = 1,
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# layouts on a mesh (DTensor); no-ops on plain tensors
+# ---------------------------------------------------------------------------
+
+def _layout(x, spec):
+    """x (a DTensor) redistributed to `spec` resolved on its mesh."""
+    sh = activation_sharding(x.device_mesh, tuple(x.shape), spec)
+    return x.redistribute(x.device_mesh, sh.placements())
+
+
+def batch_rows(x: torch.Tensor) -> torch.Tensor:
+    """x laid out batch (dim 0) over the DP axes, its other dims whole,
+    when x is a DTensor (constrain_spec): the residual stream's layout
+    at a layer's entry, so no layer merges two sharded dims."""
+    return constrain_spec(x, ("data",) + (None,) * (x.ndim - 1))
+
+
+class _Constrain(torch.autograd.Function):
+    """_layout on the value and on its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.spec = spec
+        return _layout(x, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+            return (_layout(g, ctx.spec) if isinstance(g, DTensor) else g), None
+
+
+def constrain_spec(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """x laid out by `spec` (None, "data" for the DP axes, or a mesh
+    axis name per dim; an axis that does not divide its dim leaves it
+    whole) when x is a DTensor, and its gradient too: the redistribute
+    GSPMD would insert for the reference's with_sharding_constraint.
+    Plain tensors pass unchanged."""
+    return _Constrain.apply(x, spec) if isinstance(x, DTensor) else x
+
+
+def dp_entry(x: torch.Tensor, n: int):
+    """"data" when x is a DTensor whose mesh's DP axes divide n, else
+    None: a spec entry for a dim that carries n batch rows."""
+    if not isinstance(x, DTensor):
+        return None
+    return "data" if activation_sharding(
+        x.device_mesh, (n,), ("data",)).spec[0] else None
+
+
+def zeros_laid_out(like: torch.Tensor, shape: tuple, spec: tuple,
+                   dtype) -> torch.Tensor:
+    """Zeros of `shape` on like's device; when `like` is a DTensor, a
+    DTensor on its mesh laid out by `spec`, each rank allocating its
+    shard only."""
+    if not isinstance(like, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    mesh = like.device_mesh
+    pl = activation_sharding(mesh, shape, spec).placements()
+    return DTensor.from_local(
+        torch.zeros(local_shape(shape, pl, mesh), dtype=dtype,
+                    device=like.to_local().device), mesh, pl,
+        run_check=False)
+
+
+def per_shard(fn, xs: tuple, specs: tuple):
+    """fn(*xs) where fn acts on each shard alone (attention is
+    independent across batch rows and heads). With a DTensor among xs,
+    each is laid out by its spec (a plain tensor counts as whole on
+    every rank), fn runs on the local shards, and its result carries
+    the first input's layout: what GSPMD makes of such a step, where
+    DTensor's products cannot follow two sharded dims merged into one.
+    Plain tensors: fn(*xs)."""
+    mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*xs)
+    whole = [Replicate()] * mesh.ndim
+    laid = [None if x is None else _layout(
+        x if isinstance(x, DTensor) else DTensor.from_local(
+            x, mesh, whole, run_check=False), spec)
+        for x, spec in zip(xs, specs)]
+    out = fn(*(None if x is None else x.to_local() for x in laid))
+    return DTensor.from_local(out, mesh, laid[0].placements,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

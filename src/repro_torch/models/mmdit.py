@@ -24,6 +24,8 @@ from repro_torch.models.dit import (
 )
 from repro_torch.models.layers import (
     Params,
+    batch_rows,
+    constrain_spec,
     gelu,
     layer_params,
     linear,
@@ -76,8 +78,7 @@ def single_block_init(gen, cfg: DiffusionConfig, device=None) -> Params:
 
 
 def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    b, t, d = x.shape
-    return x.reshape(b, t, n_heads, d // n_heads)
+    return attn.split_heads(x, n_heads)
 
 
 def sincos_2d(g: int, dim: int, dtype=torch.float32,
@@ -101,11 +102,16 @@ def sincos_2d(g: int, dim: int, dtype=torch.float32,
     return emb[None].to(dtype)
 
 
+_QKV_SPEC = ("data", None, "model")
+
+
 def _qkv(p: Params, h: torch.Tensor):
-    """q, k, v [B, T, D] of one stream, q and k RMS-normalized over D."""
+    """q, k, v [B, T, D] of one stream, q and k RMS-normalized over D
+    (on a mesh: batch over the DP axes, D over `model`)."""
     q = rmsnorm(p["q_norm"], linear(p["wq"], h))
     k = rmsnorm(p["k_norm"], linear(p["wk"], h))
-    return q, k, linear(p["wv"], h)
+    return tuple(constrain_spec(t, _QKV_SPEC)
+                 for t in (q, k, linear(p["wv"], h)))
 
 
 def _mlp(p: Params, h: torch.Tensor) -> torch.Tensor:
@@ -128,7 +134,7 @@ def double_block(p: Params, img: torch.Tensor, txt: torch.Tensor,
     o = attn.sdpa(_heads(torch.cat([qt, qi], 1), h),
                   _heads(torch.cat([kt, ki], 1), h),
                   _heads(torch.cat([vt, vi], 1), h), causal=False)
-    o = o.reshape(o.shape[0], o.shape[1], -1)
+    o = attn.merge_heads(o)
     ot, oi = o[:, :tt], o[:, tt:]
     img = img + ig1 * linear(p["img_attn"]["wo"], oi)
     txt = txt + tg1 * linear(p["txt_attn"]["wo"], ot)
@@ -148,7 +154,7 @@ def single_block(p: Params, x: torch.Tensor, c: torch.Tensor,
     h = modulated_layernorm({}, x, sh, sc)
     q, k, v = _qkv(p["attn"], h)
     o = attn.sdpa(_heads(q, h_), _heads(k, h_), _heads(v, h_), causal=False)
-    o = linear(p["attn"]["wo"], o.reshape(x.shape))
+    o = linear(p["attn"]["wo"], attn.merge_heads(o))
     return x + g * (o + _mlp(p["mlp"], h))
 
 
@@ -183,7 +189,8 @@ def mmdit_forward(params: Params, cfg: DiffusionConfig,
     b, r, _, c = latents.shape
     p_sz = cfg.patch
     g = r // p_sz
-    x = latents.reshape(b, g, p_sz, g, p_sz, c).permute(0, 1, 3, 2, 4, 5)
+    x = batch_rows(latents).reshape(b, g, p_sz, g, p_sz, c).permute(
+        0, 1, 3, 2, 4, 5)
     x = x.reshape(b, g * g, p_sz * p_sz * c)
     img = linear(params["img_in"], x.to(cfg.dtype))
     img = img + sincos_2d(g, cfg.d_model, img.dtype, img.device)

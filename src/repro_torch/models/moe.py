@@ -20,9 +20,17 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.models.layers import Params, linear_init, silu, trunc_normal
+from repro_torch.models.layers import (
+    Params,
+    constrain_spec,
+    linear,
+    linear_init,
+    silu,
+    trunc_normal,
+)
 
 
 class MoEMetrics(NamedTuple):
@@ -93,49 +101,125 @@ def moe_dispatch(ids: torch.Tensor, c: int):
     return order, sorted_e, pos_in_e, pos_in_e < c
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: LMConfig, *,
-            capacity_factor: float = 1.25):
-    """x [B, S, D] -> (y [B, S, D], MoEMetrics)."""
-    b, s, d = x.shape
-    e, k = cfg.moe_experts, cfg.moe_top_k
-    t = b * s
-    xt = x.reshape(t, d)
+class _Plan(NamedTuple):
+    """One dispatch: where each (token, k) assignment goes."""
+    order: torch.Tensor
+    safe_e: torch.Tensor
+    safe_pos: torch.Tensor
+    keep_x: torch.Tensor
+    g_flat: torch.Tensor
+    ids: torch.Tensor
+    probs: torch.Tensor
+    dropped_frac: torch.Tensor
 
-    gates, ids, probs = router_topk(p["router"]["w"], xt, k)
+
+def _dispatch(xt: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig,
+              capacity_factor: float):
+    """Route xt [T, D] and scatter it into the [E, C, D] buffer."""
+    t, d = xt.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    gates, ids, probs = router_topk(router_w, xt, k)
     c = capacity(t, cfg, capacity_factor)
     order, sorted_e, pos_in_e, keep = moe_dispatch(ids, c)
     dropped_frac = 1.0 - keep.float().mean()
-    g_flat = gates.reshape(t * k).to(x.dtype)
+    g_flat = gates.reshape(t * k).to(xt.dtype)
 
     tok = order // k                                  # token of each slot
     safe_e = torch.where(keep, sorted_e, 0)
     safe_pos = torch.where(keep, pos_in_e, 0)
-    keep_x = keep[:, None].to(x.dtype)
+    keep_x = keep[:, None].to(xt.dtype)
     vals = xt[tok] * keep_x                           # [T*K, D]
-    buf = torch.zeros(e, c, d, dtype=x.dtype, device=x.device)
+    buf = torch.zeros(e, c, d, dtype=xt.dtype, device=xt.device)
     # dropped rows add zeros at slot (0, 0), as in the reference
     buf.index_put_((safe_e, safe_pos), vals, accumulate=True)
+    return buf, _Plan(order, safe_e, safe_pos, keep_x, g_flat, ids, probs,
+                      dropped_frac)
 
-    # the experts' SwiGLU FFN over the leading E axis
-    h = silu(torch.bmm(buf, p["w_gate"].to(x.dtype))) \
-        * torch.bmm(buf, p["w_up"].to(x.dtype))
-    y_buf = torch.bmm(h, p["w_down"].to(x.dtype))
 
-    # gather back, gate, unsort, sum over k
-    y_sorted = y_buf[safe_e, safe_pos] * keep_x
-    y_sorted = y_sorted * g_flat[order][:, None]
-    y_flat = torch.zeros(t * k, d, dtype=x.dtype, device=x.device)
-    y_flat[order] = y_sorted
-    y = y_flat.reshape(t, k, d).sum(1)
+def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU FFN over the leading E axis."""
+    h = silu(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
+        * torch.bmm(buf, p["w_up"].to(buf.dtype))
+    return torch.bmm(h, p["w_down"].to(buf.dtype))
 
+
+def _combine(y_buf: torch.Tensor, plan: _Plan, k: int) -> torch.Tensor:
+    """Gather back, gate, unsort, sum over k -> [T, D]."""
+    tk, d = plan.order.shape[0], y_buf.shape[-1]
+    y_sorted = y_buf[plan.safe_e, plan.safe_pos] * plan.keep_x
+    y_sorted = y_sorted * plan.g_flat[plan.order][:, None]
+    y_flat = torch.zeros(tk, d, dtype=y_buf.dtype, device=y_buf.device)
+    y_flat[plan.order] = y_sorted
+    return y_flat.reshape(tk // k, k, d).sum(1)
+
+
+def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts' SwiGLU (bias-free linears)."""
+    sh = p["shared"]
+    hg = silu(linear(sh["gate"], xt))
+    hu = linear(sh["up"], xt)
+    return linear(sh["down"], hg * hu)
+
+
+def _aux(plan: _Plan, e: int) -> torch.Tensor:
+    """Switch-style load-balancing loss."""
+    me = plan.probs.mean(0)
+    ce = F.one_hot(plan.ids[:, 0], e).float().mean(0)
+    return e * torch.sum(me * ce)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: LMConfig, *,
+            capacity_factor: float = 1.25):
+    """x [B, S, D] -> (y [B, S, D], MoEMetrics). On DTensors, see
+    `_moe_ffn_mesh`."""
+    if isinstance(x, DTensor):
+        return _moe_ffn_mesh(p, x, cfg, capacity_factor)
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    buf, plan = _dispatch(xt, p["router"]["w"], cfg, capacity_factor)
+    y = _combine(_experts(p, buf), plan, cfg.moe_top_k)
     if "shared" in p:
-        sh = p["shared"]
-        hg = silu(xt @ sh["gate"]["w"].to(x.dtype))
-        hu = xt @ sh["up"]["w"].to(x.dtype)
-        y = y + (hg * hu) @ sh["down"]["w"].to(x.dtype)
+        y = y + _shared(p, xt)
+    return y.reshape(b, s, d), MoEMetrics(_aux(plan, cfg.moe_experts),
+                                          plan.dropped_frac)
 
-    # Switch-style load-balancing loss
-    me = probs.mean(0)
-    ce = F.one_hot(ids[:, 0], e).float().mean(0)
-    aux = e * torch.sum(me * ce)
-    return y.reshape(b, s, d), MoEMetrics(aux, dropped_frac)
+
+def _moe_ffn_mesh(p: Params, x: torch.Tensor, cfg: LMConfig,
+                  capacity_factor: float):
+    """The layer on a mesh (DTensors). x is laid out batch over the DP
+    axes; each DP shard routes and dispatches its own tokens (capacity
+    from its token count: the dispatch's sort and scatter have no
+    DTensor rules) into its slice of the [E, C, D] buffer, whose
+    capacity axis is sharded over the DP axes and, for the experts, its
+    expert axis over `model` (expert parallelism, the experts' weight
+    shards gathered by DTensor as FSDP does); each shard gathers its
+    results back. The shared experts and the metrics run on DTensors.
+    On a one-rank mesh this is the plain layer."""
+    mesh = x.device_mesh
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    x = constrain_spec(x, ("data", None, None))
+    b, s, d = x.shape
+    batch_sharded = [pl.is_shard(0) for pl in x.placements]
+    whole = [Replicate()] * mesh.ndim
+    router_w = p["router"]["w"].redistribute(mesh, whole).to_local()
+    xt = x.to_local().reshape(-1, d)
+    buf, plan = _dispatch(xt, router_w, cfg, capacity_factor)
+
+    cap_pl = [Shard(1) if sh else Replicate() for sh in batch_sharded]
+    buf = DTensor.from_local(buf, mesh, cap_pl, run_check=False)
+    y_buf = _experts(p, constrain_spec(buf, (
+        "model", "data" if any(batch_sharded) else None, None)))
+    y_buf = y_buf.redistribute(mesh, cap_pl).to_local()
+    # laid out (and its gradient) as x, so the backward's merge of the
+    # gradient into rows meets no second sharded dim
+    y = constrain_spec(DTensor.from_local(
+        _combine(y_buf, plan, k), mesh,
+        [Shard(0) if sh else Replicate() for sh in batch_sharded],
+        run_check=False).reshape(b, s, d), ("data", None, None))
+    if "shared" in p:
+        y = y + _shared(p, x)
+    mean = [Partial("avg") if sh else Replicate() for sh in batch_sharded]
+    metrics = MoEMetrics(*(DTensor.from_local(m, mesh, mean,
+                                              run_check=False)
+                           for m in (_aux(plan, e), plan.dropped_frac)))
+    return y, metrics

@@ -17,7 +17,10 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Params,
+    batch_rows,
+    constrain_spec,
     conv_init,
+    dp_entry,
     layernorm,
     layernorm_init,
     linear,
@@ -72,7 +75,10 @@ def swin_block_init(gen, dim: int, n_heads: int, window: int,
 
 def swin_block(p: Params, x: torch.Tensor, *, n_heads: int, window: int,
                shift: int, rel_index: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C]; rel_index [w^2, w^2] (_rel_position_index)."""
+    """x [B, H, W, C]; rel_index [w^2, w^2] (_rel_position_index). On
+    a mesh x enters laid out batch over the DP axes, the map whole (the
+    windows are cut from it)."""
+    x = constrain_spec(x, ("data", None, None, None))
     b, h, w, c = x.shape
     shortcut = x
     x = layernorm(p["norm1"], x)
@@ -86,7 +92,11 @@ def swin_block(p: Params, x: torch.Tensor, *, n_heads: int, window: int,
             if shift > 0 else None)
     wins = attn.window_attention(p["attn"], wins, n_heads=n_heads,
                                  rel_bias=rel_bias, mask=mask)
-    x = attn.window_unpartition(wins, window, h, w)
+    # windows sharded only as whole images are, so the map reassembles
+    wins = constrain_spec(wins, (dp_entry(wins, b), None, None))
+    # the map (and its gradient) laid out as at the block's entry
+    x = constrain_spec(attn.window_unpartition(wins, window, h, w),
+                       ("data", None, None, None))
     if shift > 0:
         x = torch.roll(x, (shift, shift), dims=(1, 2))
     x = shortcut + x
@@ -103,9 +113,9 @@ def patch_merge_init(gen, dim: int, *, device=None,
 def patch_merge(p: Params, x: torch.Tensor) -> torch.Tensor:
     """[B, H, W, C] -> [B, H/2, W/2, 2C]."""
     b, h, w, c = x.shape
-    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    x = batch_rows(x).reshape(b, h // 2, 2, w // 2, 2, c)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
-    return linear(p["reduce"], layernorm(p["norm"], x))
+    return linear(p["reduce"], layernorm(p["norm"], batch_rows(x)))
 
 
 def _stage_heads(cfg: VisionConfig) -> list[int]:
@@ -149,7 +159,7 @@ def swin_forward(params: Params, cfg: VisionConfig,
     b, h, w, _ = images.shape
     x = patch_embed(images.to(cfg.dtype), wflat, pe["b"].to(cfg.dtype),
                     patch=cfg.patch)
-    x = x.reshape(b, h // cfg.patch, w // cfg.patch, -1)
+    x = batch_rows(x.reshape(b, h // cfg.patch, w // cfg.patch, -1))
     x = layernorm(params["patch_norm"], x)
     for s, stage in enumerate(params["stages"]):
         for i, bp in enumerate(stage["blocks"]):

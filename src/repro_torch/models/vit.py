@@ -25,6 +25,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.models.attention import gqa_attention, gqa_init
 from repro_torch.models.layers import (
     Params,
+    constrain_spec,
     conv_init,
     grid_side,
     layer_params,
@@ -110,6 +111,8 @@ def vision_params_from_numpy(tree, dtype, device=None) -> Params:
 
 def vit_block(p: Params, x: torch.Tensor, n_heads: int,
               impl: str = "xla") -> torch.Tensor:
+    """On a mesh x enters laid out batch over the DP axes."""
+    x = constrain_spec(x, ("data", None, None))
     x = x + gqa_attention(p["attn"], layernorm(p["norm1"], x),
                           n_heads=n_heads, n_kv_heads=n_heads, causal=False,
                           impl=impl)

@@ -19,6 +19,7 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.numerics import fma_f32
 
@@ -52,6 +53,13 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _plain(key: torch.Tensor) -> torch.Tensor:
+    """A key laid out on a mesh (a replicated DTensor) as the plain
+    tensor every rank holds: each rank draws the same bits, and DTensor
+    has no rule for uniform's reinterpretation of bits as floats."""
+    return key.full_tensor() if isinstance(key, DTensor) else key
+
+
 def _words(key: torch.Tensor, extra_dims: int):
     k1, k2 = key[..., 0], key[..., 1]
     shape = k1.shape + (1,) * extra_dims
@@ -61,6 +69,7 @@ def _words(key: torch.Tensor, extra_dims: int):
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """Mix an integer (or a tensor of integers broadcastable against the
     key batch) into keys [..., 2]."""
+    key = _plain(key)
     k1, k2 = key[..., 0], key[..., 1]
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
     y0, y1 = threefry2x32(k1, k2, torch.zeros_like(d), d)
@@ -69,6 +78,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """keys [..., 2] -> [..., num, 2]."""
+    key = _plain(key)
     k1, k2 = _words(key, 1)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
@@ -78,6 +88,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """32 random bits per element: keys [..., 2] -> int64 [..., *shape]."""
     shape = tuple(shape)
+    key = _plain(key)
     k1, k2 = _words(key, len(shape))
     n = math.prod(shape)
     lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)

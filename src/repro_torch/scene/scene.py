@@ -53,6 +53,20 @@ class SceneSpec:
     def max_objects(self) -> int:
         return self.max_people + self.max_cars
 
+    @classmethod
+    def from_config(cls, cfg, **overrides) -> "SceneSpec":
+        """Geometry and layout of a numpy `data.scene.SceneConfig` as a
+        static spec. Dynamics (person_speed, car_speed, churn) are
+        per-camera tensors in SceneFleetParams, not spec fields: use
+        `fleet_from_config` to port a whole SceneConfig."""
+        kw = dict(extent=tuple(cfg.extent), fps=cfg.fps,
+                  max_people=cfg.n_people, max_cars=cfg.n_cars,
+                  n_poi=cfg.n_poi, person_size=tuple(cfg.person_size),
+                  car_size=tuple(cfg.car_size),
+                  lane_tilts=tuple(cfg.lane_tilts))
+        kw.update(overrides)
+        return cls(**kw)
+
 
 class SceneFleetParams(NamedTuple):
     """Per-camera scene heterogeneity; every leaf leads with [F]."""
@@ -119,6 +133,20 @@ def scene_fleet_params(spec: SceneSpec, n_cameras: int, *, seed: int = 0,
         churn=bc(churn), poi=poi,
         enabled=torch.as_tensor(enabled, device=device))
     return params, rng
+
+
+def fleet_from_config(cfg, n_cameras: int, *, seed: int = 0,
+                      scene_seeds=None, device=None, **spec_overrides
+                      ) -> tuple[SceneSpec, SceneFleetParams, torch.Tensor]:
+    """Port one numpy `data.scene.SceneConfig`, geometry and dynamics, to
+    the fleet substrate: (SceneSpec, homogeneous SceneFleetParams,
+    camera keys [F, 2]), on `device` as scene_fleet_params."""
+    spec = SceneSpec.from_config(cfg, **spec_overrides)
+    params, rng = scene_fleet_params(
+        spec, n_cameras, seed=seed, scene_seeds=scene_seeds,
+        person_speed=cfg.person_speed, car_speed=cfg.car_speed,
+        churn=cfg.churn, device=device)
+    return spec, params, rng
 
 
 def _norm(v: torch.Tensor, keepdim: bool = True) -> torch.Tensor:

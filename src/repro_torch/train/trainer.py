@@ -25,6 +25,7 @@ from functools import partial
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import (
     DetectorConfig,
@@ -158,8 +159,17 @@ def value_and_grad(loss_fn: Callable, params, *args):
         flat = tree_leaves(p)
         gs = torch.autograd.grad(loss, flat, allow_unused=True,
                                  materialize_grads=True)
-    by_leaf = {id(t): g for t, g in zip(flat, gs)}
+    by_leaf = {id(t): _as_param(g, t) for t, g in zip(flat, gs)}
     return loss.detach(), tree_map(lambda t: by_leaf[id(t)], p)
+
+
+def _as_param(g, param):
+    """A DTensor gradient laid out as its parameter (ZeRO: reduced and
+    scattered to the parameter's shards, as GSPMD lays gradients out);
+    plain gradients as they are."""
+    if isinstance(g, DTensor) and g.placements != param.placements:
+        return g.redistribute(param.device_mesh, param.placements)
+    return g
 
 
 def make_train_step(cfg, *, lr: float = 1e-4, weight_decay: float = 0.01,

@@ -139,7 +139,9 @@ def test_port_imports_no_jax():
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.pipeline",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.analysis"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -180,3 +180,27 @@ def test_render_pieces_match(scenes):
         trender.render_noise(scenes["trng"], tn(frame), 32).numpy(),
         np.asarray(jrender.render_noise(scenes["jrng"], frame, 32)),
         atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("overrides", [{}, {"max_people": 20, "n_poi": 5}])
+def test_fleet_from_config_matches(overrides):
+    """fleet_from_config ports a numpy SceneConfig (geometry and
+    dynamics) as the reference's does: the spec's shared fields, the
+    per-camera params and the camera keys are equal."""
+    from repro.data.scene import SceneConfig as JConfig
+    from repro_torch.data.scene import SceneConfig as TConfig
+
+    kw = dict(extent=(140.0, 70.0), n_people=9, n_cars=5, n_poi=4,
+              person_speed=1.7, car_speed=12.0, churn=0.03,
+              lane_tilts=(18.0, 30.0))
+    jspec, jp, jrng = jscene.fleet_from_config(
+        JConfig(**kw), F, seed=6, scene_seeds=[4, 1, 9], **overrides)
+    tspec, tp, trng = tscene.fleet_from_config(
+        TConfig(**kw), F, seed=6, scene_seeds=[4, 1, 9], **overrides)
+    for name in tscene.SceneSpec.__dataclass_fields__:
+        assert getattr(tspec, name) == getattr(jspec, name), name
+    np.testing.assert_array_equal(trng.numpy(), np.asarray(jrng, np.int64))
+    for name in jp._fields:
+        np.testing.assert_array_equal(getattr(tp, name).numpy(),
+                                      np.asarray(getattr(jp, name)),
+                                      err_msg=name)

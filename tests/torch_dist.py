@@ -9,8 +9,10 @@ one intra-op thread.
 
 `fn` must be importable by name (a module-level function): the ranks
 start from a fresh interpreter (`spawn`, never `fork`). The rank bodies
-of tests/test_torch_distributed.py and tests/test_torch_fleet_shard.py
-live below, so that a rank imports torch and the port only, not JAX.
+of tests/test_torch_distributed.py, tests/test_torch_fleet_shard.py and
+tests/test_torch_launch.py live below, so that a rank imports torch and
+the port only, not JAX. `spawn_alone` starts one process with no group
+(the dry run makes its own "fake" world there).
 """
 from __future__ import annotations
 
@@ -101,6 +103,31 @@ def spawn(fn, n: int, tmp_path, *args) -> Ranks:
     for p in procs:
         p.start()
     return Ranks(procs, out)
+
+
+def _alone_main(fn, args, out):
+    try:
+        torch.set_num_threads(1)
+        try:
+            res = ("ok", fn(0, *args))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which raises
+        res = ("error", traceback.format_exc())
+    out.put((0, pickle.dumps(res)))
+
+
+def spawn_alone(fn, *args) -> Ranks:
+    """Start one process running fn(0, *args) with no process group of
+    ours: fn makes its own (the dry run's "fake" world), which goes with
+    the process."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_alone_main, args=(fn, args, out),
+                       daemon=True)
+    proc.start()
+    return Ranks([proc], out)
 
 
 # ---------------------------------------------------------------------------
@@ -383,4 +410,146 @@ def fleet_suite_rank(rank, specs, meshes, mbps, det_npz=None):
         n_data, n_model = meshes[0]
         out["engine"] = engine_rank(rank, det_npz, n_data, n_model)
         out["uneven"] = uneven_rank(rank, n_data, n_model)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# process bodies: tests/test_torch_launch.py (a "fake" world of 4 ranks,
+# this process rank 0; nothing moves between ranks)
+# ---------------------------------------------------------------------------
+
+def _fake_world(n: int = 4):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import dryrun
+
+    dryrun.fake_world(n)
+    two = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                     mesh_dim_names=("data", "model"))
+    return two, dryrun.one_rank_mesh("cpu")
+
+
+def smoke_variant(arch: str, **changes) -> str:
+    """Register arch's SMOKE config under "<arch>@smoke" (with
+    `changes`) for build_cell; returns the name."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import _REGISTRY
+
+    name = f"{arch}@smoke"
+    _REGISTRY[name] = dataclasses.replace(get_smoke_config(arch), name=name,
+                                          **changes)
+    return name
+
+
+def collective_cases(mesh) -> dict:
+    """{case: (collective_bytes of its record, the outputs' local shape
+    and dtype)} of four redistributions of known DTensors on the (2, 2)
+    mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (
+        CollectiveRecorder,
+        collective_bytes,
+    )
+
+    cases = {
+        "S(0)->R": ((8, 6), torch.float32, (Shard(0), Replicate()),
+                    (Replicate(), Replicate())),
+        "P->R": ((4, 6), torch.bfloat16, (Partial(), Replicate()),
+                 (Replicate(), Replicate())),
+        "P->S(0)": ((8, 6), torch.float32, (Partial(), Replicate()),
+                    (Shard(0), Replicate())),
+        "S(0)->S(1)": ((8, 6), torch.float32, (Replicate(), Shard(0)),
+                       (Replicate(), Shard(1))),
+    }
+    out = {}
+    with FakeTensorMode():
+        for name, (shape, dt, src, dst) in cases.items():
+            local = [s // 2 if any(p.is_shard(i) for p in src) else s
+                     for i, s in enumerate(shape)]
+            x = DTensor.from_local(torch.empty(local, dtype=dt), mesh, src,
+                                   run_check=False)
+            rec = CollectiveRecorder()
+            with rec:
+                y = x.redistribute(mesh, dst)
+            out[name] = (collective_bytes(rec.record),
+                         tuple(y.to_local().shape), str(dt))
+    return out
+
+
+def launch_rank(_, cells, parity_cells):
+    """The dry run's pieces on a fake world: collective_cases, run_cell
+    on each SMOKE (arch, shape) of `cells` on the (2, 2) mesh, and for
+    `parity_cells` the dry run's FLOPs on a 1 x 1 mesh beside
+    FlopCounterMode's count of the real run (build_cell's fn on the
+    cell's make_args, numpy weights, laid out on the same mesh)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.elastic import reshard
+
+    two, one = _fake_world()
+    out = {"collectives": collective_cases(two), "cells": {}, "parity": {}}
+    for arch, shape in cells:
+        out["cells"][(arch, shape)] = dryrun.run_cell(
+            smoke_variant(arch), shape, mesh=two, device="cpu",
+            verbose=False)
+    for arch, shape in parity_cells:
+        cell = build_cell(smoke_variant(arch), shape, one)
+        dry = dryrun.run_cell(cell.arch, shape, mesh=one, device="cpu",
+                              verbose=False)
+        args = reshard(cell.make_args(np.random.default_rng(0), "cpu"),
+                       cell.in_shardings)
+        with implicit_replication(), FlopCounterMode(display=False) as fc:
+            cell.fn(*args)
+        out["parity"][(arch, shape)] = (dry["flops"], fc.get_total_flops())
+    return out
+
+
+def analysis_rank(_, cases):
+    """For each (arch, shape, changes): analysis.run_cell's extrapolated
+    metrics and a direct fake run at full depth, on the (2, 2) mesh."""
+    from repro_torch.launch import analysis
+
+    two, _one = _fake_world()
+    out = {}
+    for arch, shape, changes in cases:
+        name = smoke_variant(arch, **changes)
+        ext = analysis.run_cell(name, shape, mesh=two, device="cpu")
+        direct = analysis._measure(name, shape, two, "cpu")
+        out[(arch, shape)] = (ext, direct)
+    return out
+
+
+def one_rank_values_rank(rank, cells):
+    """build_cell's fn for each SMOKE (arch, shape) of `cells` on this
+    one-rank gloo group's 1 x 1 mesh, its args (numpy weights) laid out
+    by the in_shardings, against the same fn on the plain tensors: the
+    largest |difference| over the outputs' floating leaves."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.elastic import reshard
+
+    mesh = make_debug_mesh(device="cpu")
+    out = {}
+    for arch, shape in cells:
+        cell = build_cell(smoke_variant(arch), shape, mesh)
+        plain = cell.make_args(np.random.default_rng(1), "cpu")
+        with implicit_replication():
+            got = cell.fn(*reshard(plain, cell.in_shardings))
+        want = cell.fn(*plain)
+        diffs = [float((g.full_tensor() if isinstance(g, DTensor) else g)
+                       .float().sub(w.float()).abs().max())
+                 for g, w in zip(tree_leaves(got), tree_leaves(want))
+                 if isinstance(w, torch.Tensor) and w.is_floating_point()]
+        out[(arch, shape)] = (len(diffs), max(diffs))
     return out
