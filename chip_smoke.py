@@ -244,6 +244,7 @@ from repro_torch.configs import (  # noqa: E402
     LM_ARCHS,
     ShapeSpec,
     get_config,
+    get_shape,
     get_smoke_config,
 )
 from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
@@ -261,6 +262,7 @@ from repro_torch.distributed.pipeline import (  # noqa: E402
 from repro_torch.distributed.sharding import param_shardings  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     tree_leaves as tree_leaves_nt,
+    tree_map_with_path,
 )
 from repro_torch.fleet.api import (  # noqa: E402
     FleetRunSpec,
@@ -578,6 +580,12 @@ LAUNCH_DRY_CELLS = [("stablelm-3b", "decode_32k"), ("vit-b16", "serve_b128")]
 LAUNCH_REAL_CELLS = [("vit-b16", "serve_b128"), ("dit-l2", "gen_fast"),
                      ("vit-b16", "cls_384")]
 LAUNCH_SEED = 24
+# a one-rank mesh's DTensor run against the plain tensors' run of the
+# same cell: the products see other shapes (rows flattened, per-shard
+# attention), so cuBLAS may sum in another order; bf16 outputs are held
+# to 4 bf16 ulps of their largest magnitude, a train step to
+# tests/torch_train_inputs.py check_step's bf16 tolerances
+LAUNCH_REL_TOL = 2.0 ** -6
 LAUNCH_TIMEOUT_S = 300
 FRAME = (1080, 1920, 3)  # frame_delta: one 1080p RGB frame per camera
 RMS_SHAPE = (8, 4096, 2560)  # rmsnorm at stablelm-3b's d_model
@@ -3954,13 +3962,45 @@ def _finite(tree) -> bool:
         if isinstance(t, torch.Tensor) and t.is_floating_point())
 
 
+def _whole(tree):
+    """Every DTensor leaf of `tree` as the full tensor."""
+    return tree_map_with_path(lambda _, t: t.full_tensor() if hasattr(
+        t, "full_tensor") else t, tree)
+
+
+def launch_agree(got, want, train: bool, dtype, label: str) -> float:
+    """Hold the DTensor run's outputs against the plain run's: a train
+    step by check_step (returns its worst parameter error), any other
+    cell by LAUNCH_REL_TOL over its floating leaves (returns the worst
+    error relative to the leaf's largest magnitude)."""
+    if train:
+        return check_step(got, want, dtype, label)["params"]
+    worst = 0.0
+    pairs = [(g, w) for g, w in zip(tree_leaves_nt(got),
+                                    tree_leaves_nt(want))
+             if isinstance(w, torch.Tensor) and w.is_floating_point()]
+    if not pairs:
+        raise AssertionError(f"{label}: no floating output to compare")
+    for g, w in pairs:
+        top = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max()) / max(top, 1e-30)
+        if not err <= LAUNCH_REL_TOL:
+            raise AssertionError(f"{label}: DTensor run off the plain run "
+                                 f"by {err:.3e} of {top:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
 def launch_real(arch: str, shape: str, mesh, dry: dict, dev) -> dict:
     """build_cell's fn at (arch, shape) on the one-rank mesh, weights and
     inputs drawn by numpy (make_args), laid out by its in_shardings:
-    FlopCounterMode's count of the run must equal the 1 x 1 dry run's;
+    FlopCounterMode's count of the run must equal the 1 x 1 dry run's,
+    and its outputs the same fn's on the plain tensors (launch_agree);
     then the step timed on the DTensor args and on the plain tensors
     (one call each after the counted one)."""
     cell = build_cell(arch, shape, mesh)
+    cfg = get_config(arch)
+    train = get_shape(cfg, shape).kind == "train"
     t0 = time.perf_counter()
     plain = cell.make_args(np.random.default_rng(LAUNCH_SEED), dev)
     args = reshard(plain, cell.in_shardings)
@@ -3979,6 +4019,8 @@ def launch_real(arch: str, shape: str, mesh, dry: dict, dev) -> dict:
                              f"{flops} FLOPs, the dry run {dry['flops']}")
     if not _finite(out):
         raise AssertionError(f"launch {arch} x {shape}: non-finite output")
+    err = launch_agree(_whole(out), cell.fn(*plain), train, cfg.dtype,
+                       f"launch {arch} x {shape}")
     del out
 
     def timed(fn) -> float:
@@ -3998,8 +4040,11 @@ def launch_real(arch: str, shape: str, mesh, dry: dict, dev) -> dict:
          "tflops_dtensor": flops / dt_ms / 1e9,
          "max_memory_allocated": peak,
          "dry_bytes_per_device": dry["bytes_per_device"],
+         "dtensor_vs_plain": err,
          "launches": {k: v for k, v in launches.items() if v}}
     print(f"launch real {arch} x {shape}: flops {flops:.4e} (= dry run), "
+          f"DTensor vs plain {err:.3e} "
+          f"({'check_step, params' if train else 'of the largest'}), "
           f"{plain_ms:.2f} ms plain ({r['tflops_plain']:.1f} TFLOP/s), "
           f"{dt_ms:.2f} ms on DTensors ({r['tflops_dtensor']:.1f} "
           f"TFLOP/s), peak {peak / 2**30:.3f} GiB vs dry "

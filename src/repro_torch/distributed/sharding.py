@@ -31,14 +31,22 @@ from __future__ import annotations
 
 import contextlib
 import re
-from dataclasses import dataclass
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 
-from repro_torch.launch.mesh import axis_names, mesh_shape
+from repro_torch.models.layout import (  # noqa: F401 (re-exported)
+    NamedSharding,
+    activation_sharding,
+    axis_names,
+    axis_size,
+    dp_axes,
+    fits,
+    local_shape,
+    spec_entry,
+)
 
 
 def tree_map_with_path(fn, tree, path: tuple = ()):
@@ -65,54 +73,6 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map_with_path(lambda _, x: out.append(x), tree)
     return out
-
-
-def dp_axes(mesh) -> tuple:
-    """The data-parallel mesh axes (pod + data when multi-pod)."""
-    names = axis_names(mesh)
-    return tuple(a for a in ("pod", "data") if a in names) or (names[0],)
-
-
-def axis_size(mesh, axis) -> int:
-    shape = mesh_shape(mesh)
-    if isinstance(axis, tuple):
-        n = 1
-        for a in axis:
-            n *= shape[a]
-        return n
-    return shape[axis]
-
-
-def _fits(dim: int, mesh, axis) -> bool:
-    return dim % axis_size(mesh, axis) == 0
-
-
-def _entry(axis):
-    """A spec entry as PartitionSpec keeps it: a one-axis tuple is the
-    axis name."""
-    return axis[0] if isinstance(axis, tuple) and len(axis) == 1 else axis
-
-
-@dataclass(frozen=True)
-class NamedSharding:
-    """A layout on `mesh`: `spec[d]` names the mesh axes tensor dim d is
-    split over (None: whole), as jax's PartitionSpec entries."""
-    mesh: object
-    spec: tuple
-
-    def placements(self) -> tuple:
-        """DTensor placements, one per mesh dim: Shard(d) on every mesh
-        dim named by spec[d] (a tuple of axes shards dim d over each of
-        them, the first axis major, as JAX orders them), Replicate()
-        elsewhere."""
-        names = axis_names(self.mesh)
-        out = [Replicate()] * len(names)
-        for d, entry in enumerate(self.spec):
-            if entry is None:
-                continue
-            for a in entry if isinstance(entry, tuple) else (entry,):
-                out[names.index(a)] = Shard(d)
-        return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +173,7 @@ def _leaf_spec(path: str, shape: tuple, mesh, rules: str = "train"
                 if ax_name == "model" and "model" not in names:
                     resolved.append(None)
                     continue
-                resolved.append(_entry(axis) if _fits(dim, mesh, axis)
+                resolved.append(spec_entry(axis) if fits(dim, mesh, axis)
                                 else None)
             spec[-k:] = resolved
             return tuple(spec)
@@ -253,8 +213,8 @@ def batch_shardings(batch_tree, mesh, *, microbatched: bool = False):
     def leaf(_, x):
         spec = [None] * len(x.shape)
         b_idx = 1 if microbatched else 0
-        if len(x.shape) > b_idx and _fits(x.shape[b_idx], mesh, dp):
-            spec[b_idx] = _entry(dp)
+        if len(x.shape) > b_idx and fits(x.shape[b_idx], mesh, dp):
+            spec[b_idx] = spec_entry(dp)
         return NamedSharding(mesh, tuple(spec))
     return tree_map_with_path(leaf, batch_tree)
 
@@ -275,13 +235,13 @@ def kvcache_shardings(cache_tree, mesh, *, sequence_parallel: bool = False):
         spec = [None] * len(shape)
         if len(shape) >= 3:
             if sequence_parallel and "model" in names \
-                    and _fits(shape[2], mesh, "model"):
+                    and fits(shape[2], mesh, "model"):
                 spec[2] = "model"
-            if _fits(shape[1], mesh, dp):
-                spec[1] = _entry(dp)
+            if fits(shape[1], mesh, dp):
+                spec[1] = spec_entry(dp)
             if (not sequence_parallel and len(shape) >= 5
                     and "model" in names
-                    and _fits(shape[3], mesh, "model")):
+                    and fits(shape[3], mesh, "model")):
                 spec[3] = "model"    # kv heads over TP when they fit
         return NamedSharding(mesh, tuple(spec))
     return tree_map_with_path(leaf, cache_tree)
@@ -289,36 +249,6 @@ def kvcache_shardings(cache_tree, mesh, *, sequence_parallel: bool = False):
 
 def replicated(tree, mesh):
     return tree_map_with_path(lambda _, __: NamedSharding(mesh, ()), tree)
-
-
-def local_shape(shape: tuple, placements, mesh) -> tuple:
-    """The shape of rank 0's shard of a tensor of `shape` laid out by
-    `placements` on `mesh` (a dim split unevenly: its largest shard)."""
-    out = list(shape)
-    for size, p in zip(mesh.shape, placements):
-        if p.is_shard():
-            out[p.dim] = -(-out[p.dim] // size)
-    return tuple(out)
-
-
-def activation_sharding(mesh, shape: tuple, spec: tuple) -> NamedSharding:
-    """The layout of an activation of `shape` by `spec` (one entry a
-    dim: None, "data" for the DP axes, or a mesh axis name), as the
-    reference's `constrain_spec` resolves it: an entry whose axis the
-    mesh lacks, or whose axes do not divide the dim, leaves the dim
-    whole, as does a dim of size 1 (DTensor will not fold a sharded
-    dim of size 1 into another)."""
-    names = axis_names(mesh)
-    out = []
-    for dim, entry in zip(shape, spec):
-        axis = dp_axes(mesh) if entry == "data" else entry
-        if axis is None or dim == 1 or any(a not in names for a in (
-                axis if isinstance(axis, tuple) else (axis,))) \
-                or not _fits(dim, mesh, axis):
-            out.append(None)
-        else:
-            out.append(_entry(axis))
-    return NamedSharding(mesh, tuple(out))
 
 
 # ---------------------------------------------------------------------------
@@ -394,9 +324,10 @@ class CollectiveRecorder(TorchDispatchMode):
 
     def __enter__(self):
         if self._depth == 0:
-            self._patch = contextlib.ExitStack()
-            self._patch.enter_context(_alltoall_as_one(self))
-            self._patch.enter_context(_quiet_propagation(self))
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_alltoall_as_one(self))
+                stack.enter_context(_quiet_propagation(self))
+                self._patch = stack.pop_all()
         self._depth += 1
         return super().__enter__()
 
@@ -409,6 +340,20 @@ class CollectiveRecorder(TorchDispatchMode):
                 self._patch.close()
 
 
+def _patched(owner, name: str):
+    """owner.name, which the recorder wraps; a PyTorch without it would
+    change what is counted (an all-to-all as an all-gather, the
+    propagation's global-shape stand-ins as the rank's memory), so its
+    absence is an error, not a silent pass."""
+    orig = getattr(owner, name, None)
+    if orig is None:
+        raise RuntimeError(
+            f"CollectiveRecorder: this PyTorch ({torch.__version__}) has "
+            f"no {getattr(owner, '__name__', owner)}.{name}, which the "
+            f"dry run's counts rely on")
+    return orig
+
+
 @contextlib.contextmanager
 def _alltoall_as_one(rec: CollectiveRecorder):
     """Wraps DTensor's shard_dim_alltoall (looked up by name in
@@ -416,10 +361,7 @@ def _alltoall_as_one(rec: CollectiveRecorder):
     records one all-to-all, not the all-gather inside it."""
     from torch.distributed.tensor import placement_types as pt
 
-    orig = getattr(pt, "shard_dim_alltoall", None)
-    if orig is None:
-        yield
-        return
+    orig = _patched(pt, "shard_dim_alltoall")
 
     def wrapped(input, *args, **kwargs):
         rec._inner += 1
@@ -445,10 +387,7 @@ def _quiet_propagation(rec: CollectiveRecorder):
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
     name = "_propagate_tensor_meta_non_cached"
-    orig = getattr(ShardingPropagator, name, None)
-    if orig is None:
-        yield
-        return
+    orig = _patched(ShardingPropagator, name)
 
     def wrapped(self, *args, **kwargs):
         rec._inner += 1

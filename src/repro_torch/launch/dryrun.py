@@ -60,12 +60,12 @@ from repro_torch.devices import resolve_device
 from repro_torch.distributed.sharding import (
     CollectiveRecorder,
     collective_bytes,
-    local_shape,
     tree_leaves,
     tree_map_with_path,
 )
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import build_cell
+from repro_torch.models.layout import local_shape
 
 # full-attention archs skip long_500k per the pool note in the reference
 # (quadratic prefill is out of scope; decode is O(S) and IS run); every

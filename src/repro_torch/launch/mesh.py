@@ -21,32 +21,19 @@ process group.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.devices import resolve_device
+from repro_torch.models.layout import (  # noqa: F401 (re-exported)
+    AbstractMesh,
+    axis_names,
+    mesh_shape,
+)
 
 DEBUG_AXES = ("data", "model")
-
-
-@dataclass(frozen=True)
-class AbstractMesh:
-    """Axis names and sizes without devices or ranks: what the sharding
-    rules read of a mesh (`axis_names`, `shape` as a name -> size
-    mapping, `size`)."""
-    axis_names: tuple
-    axis_sizes: tuple
-
-    @property
-    def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.axis_sizes))
-
-    @property
-    def size(self) -> int:
-        return math.prod(self.axis_sizes)
 
 
 def make_abstract_mesh(shape: tuple, axes: tuple) -> AbstractMesh:
@@ -55,21 +42,6 @@ def make_abstract_mesh(shape: tuple, axes: tuple) -> AbstractMesh:
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
                          f"length")
     return AbstractMesh(tuple(axes), tuple(int(s) for s in shape))
-
-
-def mesh_shape(mesh) -> dict:
-    """name -> size of a DeviceMesh or an AbstractMesh."""
-    if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if isinstance(mesh, AbstractMesh):
-        return mesh.shape
-    raise TypeError(f"not a mesh: {type(mesh).__name__} (a DeviceMesh or "
-                    f"an AbstractMesh)")
-
-
-def axis_names(mesh) -> tuple:
-    """A DeviceMesh's dim names or an AbstractMesh's axis names."""
-    return tuple(mesh_shape(mesh))
 
 
 def _world_size() -> int:

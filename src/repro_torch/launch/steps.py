@@ -56,10 +56,10 @@ from repro_torch.models import mmdit as mmdit_mod
 from repro_torch.models import moe_lm, transformer
 from repro_torch.models import swin as swin_mod
 from repro_torch.models import vit as vit_mod
+from repro_torch.models.layout import TensorSpec
 from repro_torch.models.mmdit import TXT_TOKENS
 from repro_torch.scene import prng
 from repro_torch.train import trainer
-from repro_torch.train.trainer import TensorSpec
 
 KEY_SDS = TensorSpec((2,), torch.int64)
 
@@ -155,7 +155,7 @@ def _lm_cell(cfg: LMConfig, shape: ShapeSpec, mesh,
         return _train_cell(cfg, shape, mesh, "adafactor"
                            if cfg.name in _ADAFACTOR_ARCHS else "adamw")
     init = _lm_init(cfg)
-    dp = shd._entry(shd.dp_axes(mesh))
+    dp = shd.spec_entry(shd.dp_axes(mesh))
     b = shape.global_batch
 
     if shape.kind == "prefill":
@@ -238,7 +238,7 @@ def _vision_cell(cfg: VisionConfig, shape: ShapeSpec, mesh) -> CellSpec:
     args = make_args(None, None)
     p_sh = shd.param_shardings(args[0], mesh)
     i_sh = shd.batch_shardings({"x": images}, mesh)["x"]
-    dp = shd._entry(shd.dp_axes(mesh))
+    dp = shd.spec_entry(shd.dp_axes(mesh))
     out_sh = NamedSharding(
         mesh, (dp if shape.global_batch > 1 else None, None))
     return CellSpec(cfg.name, shape.name, step, args, (p_sh, i_sh), out_sh,
@@ -290,7 +290,7 @@ def _diffusion_cell(cfg: DiffusionConfig, shape: ShapeSpec,
     args = make_args(None, None)
     p_sh = shd.param_shardings(args[0], mesh)
     dp = shd.dp_axes(mesh)
-    b_axis = shd._entry(dp) if b % shd.axis_size(mesh, dp) == 0 else None
+    b_axis = shd.spec_entry(dp) if b % shd.axis_size(mesh, dp) == 0 else None
     out_sh = NamedSharding(mesh, (b_axis, None, None, None))
     return CellSpec(cfg.name, shape.name, step, args,
                     (p_sh, _replicated(mesh),

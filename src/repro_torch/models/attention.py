@@ -19,8 +19,8 @@ import math
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import activation_sharding
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layout import activation_sharding
 from repro_torch.models.layers import (
     Params,
     batch_rows,

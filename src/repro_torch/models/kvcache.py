@@ -36,9 +36,9 @@ from repro_torch.models.layers import (
     zeros_laid_out,
 )
 from repro_torch.models import moe
+from repro_torch.models.layout import TensorSpec
 from repro_torch.models.moe_lm import mla_dims, n_moe_layers
 from repro_torch.models.transformer import lm_head
-from repro_torch.train.trainer import TensorSpec
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -60,34 +60,12 @@ class MLACache(NamedTuple):
     length: int
 
 
-def init_gqa_cache(cfg: LMConfig, batch: int, max_seq: int,
-                   dtype=CACHE_DTYPE, device=None) -> GQACache:
-    """An empty cache on `device` (the card unless the caller passes
-    "cpu")."""
-    device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return GQACache(torch.zeros(shape, dtype=dtype, device=device),
-                    torch.zeros(shape, dtype=dtype, device=device), 0)
-
-
-def init_mla_cache(cfg: LMConfig, batch: int, max_seq: int,
-                   dtype=CACHE_DTYPE, device=None) -> MLACache:
-    """An empty cache on `device` (the card unless the caller passes
-    "cpu")."""
-    device = resolve_device(device)
-    lead = (cfg.n_layers, batch, max_seq)
-    return MLACache(
-        torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
-        torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device),
-        0)
-
-
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
                 dtype=CACHE_DTYPE):
     """The cache's shapes and dtypes, nothing allocated (the dry run's):
     a GQACache or MLACache of `TensorSpec`s, `length` a [] int32 spec as
-    in the reference (a real cache holds a host int there)."""
+    in the reference (a real cache holds a host int there). The one
+    place the cache's shape is written."""
     length = TensorSpec((), torch.int32)
     lead = (cfg.n_layers, batch, max_seq)
     if cfg.mla:
@@ -95,6 +73,39 @@ def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
                         TensorSpec(lead + (cfg.qk_rope_dim,), dtype), length)
     s = TensorSpec(lead + (cfg.n_kv_heads, cfg.resolved_head_dim), dtype)
     return GQACache(s, s, length)
+
+
+def _empty_cache(cfg: LMConfig, batch: int, max_seq: int, zeros):
+    """cache_specs' cache with zeros(spec) in each tensor and length 0."""
+    specs = cache_specs(cfg, batch, max_seq)
+    return type(specs)(*(zeros(s) for s in specs[:-1]), 0)
+
+
+def init_gqa_cache(cfg: LMConfig, batch: int, max_seq: int,
+                   dtype=CACHE_DTYPE, device=None) -> GQACache:
+    """An empty cache on `device` (the card unless the caller passes
+    "cpu")."""
+    device = resolve_device(device)
+    return _empty_cache(cfg, batch, max_seq, lambda s: torch.zeros(
+        s.shape, dtype=dtype, device=device))
+
+
+def init_mla_cache(cfg: LMConfig, batch: int, max_seq: int,
+                   dtype=CACHE_DTYPE, device=None) -> MLACache:
+    """An empty cache on `device` (the card unless the caller passes
+    "cpu")."""
+    device = resolve_device(device)
+    return _empty_cache(cfg, batch, max_seq, lambda s: torch.zeros(
+        s.shape, dtype=dtype, device=device))
+
+
+def _prefill_cache(cfg: LMConfig, x: torch.Tensor, max_seq: int):
+    """A prefill's empty cache, for x [B, S, D]: on x's device, and on
+    a mesh laid out batch over the DP axes, GQA's kv heads over `model`
+    where they divide (distributed/sharding.kvcache_shardings)."""
+    spec = _MLA_SPEC if cfg.mla else _GQA_SPEC
+    return _empty_cache(cfg, x.shape[0], max_seq, lambda s: zeros_laid_out(
+        x, s.shape, spec, s.dtype))
 
 
 def _layers(params: Params, cfg: LMConfig) -> list:
@@ -134,9 +145,15 @@ def _position_angles(dim: int, max_seq: int, length: int, cfg: LMConfig,
 
 def _write(cache: torch.Tensor, pos: int, value: torch.Tensor) -> None:
     """cache[:, pos] = value (cache [B, S_max, ...], value [B, ...]) in
-    the cache's dtype. A cache whose sequence axis is sharded over
-    `model` is written in its shards: every rank lays the value out
-    batch as the cache is, the rank holding position pos writes it."""
+    the cache's dtype. A partial value is summed before it is cast (a
+    cast of its terms would round each). A cache whose sequence axis is
+    sharded over `model` is written in its shards: every rank lays the
+    value out batch as the cache is, the rank holding position pos
+    writes it."""
+    if isinstance(value, DTensor) and any(
+            p.is_partial() for p in value.placements):
+        value = value.redistribute(value.device_mesh, [
+            Replicate() if p.is_partial() else p for p in value.placements])
     if not (isinstance(cache, DTensor)
             and any(p.is_shard(1) for p in cache.placements)):
         cache[:, pos] = value.to(cache.dtype)
@@ -265,10 +282,7 @@ def _gqa_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     x = embedding(params["embed"], tokens)
     angles = attn.rope_frequencies(cfg.resolved_head_dim, s, cfg.rope_theta,
                                    device=x.device)
-    shape = (cfg.n_layers, b, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    cache = GQACache(*(zeros_laid_out(x, shape, _GQA_SPEC, CACHE_DTYPE)
-                       for _ in range(2)), 0)
+    cache = _prefill_cache(cfg, x, max_seq)
     for i, lp in enumerate(_layers(params, cfg)):
         h = rmsnorm(lp["attn_norm"], x)
         q, k, v = attn.gqa_qkv_rope(lp["attn"], h, cfg.n_heads,
@@ -374,12 +388,7 @@ def mla_prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     x = embedding(params["embed"], tokens)
     angles = attn.rope_frequencies(cfg.qk_rope_dim, s, cfg.rope_theta,
                                    device=x.device)
-    lead = (cfg.n_layers, b, max_seq)
-    cache = MLACache(
-        zeros_laid_out(x, lead + (cfg.kv_lora_rank,), _MLA_SPEC,
-                       CACHE_DTYPE),
-        zeros_laid_out(x, lead + (cfg.qk_rope_dim,), _MLA_SPEC, CACHE_DTYPE),
-        0)
+    cache = _prefill_cache(cfg, x, max_seq)
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     for i, lp in enumerate(_layers(params, cfg)):
         h = rmsnorm(lp["attn_norm"], x)

@@ -18,13 +18,13 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import resolve_device
-from repro_torch.distributed.sharding import activation_sharding, local_shape
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
+from repro_torch.models.layout import activation_sharding, local_shape
 from repro_torch.train.optim import tree_leaves, tree_map
 
 Params = dict
@@ -381,7 +381,7 @@ class _Constrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-            return (_layout(g, ctx.spec) if isinstance(g, DTensor) else g), None
+        return (_layout(g, ctx.spec) if isinstance(g, DTensor) else g), None
 
 
 def constrain_spec(x: torch.Tensor, spec: tuple) -> torch.Tensor:
@@ -434,9 +434,16 @@ def per_shard(fn, xs: tuple, specs: tuple):
         x if isinstance(x, DTensor) else DTensor.from_local(
             x, mesh, whole, run_check=False), spec)
         for x, spec in zip(xs, specs)]
-    out = fn(*(None if x is None else x.to_local() for x in laid))
-    return DTensor.from_local(out, mesh, laid[0].placements,
-                              run_check=False)
+    out_pl = laid[0].placements
+
+    def local(x):
+        # an input whole over a mesh dim the result is split over feeds
+        # every shard: its gradient is the sum of theirs
+        return x.to_local(grad_placements=[
+            Partial() if pi.is_replicate() and po.is_shard() else pi
+            for pi, po in zip(x.placements, out_pl)])
+    out = fn(*(None if x is None else local(x) for x in laid))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ overflow and are dropped.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.models.layout import activation_sharding
 from repro_torch.models.layers import (
     Params,
     constrain_spec,
@@ -91,13 +93,18 @@ def capacity(tokens: int, cfg: LMConfig, capacity_factor: float) -> int:
     return min(c + (-c) % 8, max(tokens, 8))
 
 
-def moe_dispatch(ids: torch.Tensor, c: int):
+def moe_dispatch(ids: torch.Tensor, c: int,
+                 ahead: torch.Tensor | None = None):
     """ids [T, K] -> (order, sorted experts, positions within expert,
-    keep): the sort-based dispatch plan of T * K assignments."""
+    keep): the sort-based dispatch plan of T * K assignments. `ahead`
+    [E]: assignments to each expert that precede these in the global
+    order (the tokens of earlier DP shards), added to the positions."""
     e_flat = ids.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
     pos_in_e = _positions_in_runs(sorted_e)
+    if ahead is not None:
+        pos_in_e = pos_in_e + ahead[sorted_e]
     return order, sorted_e, pos_in_e, pos_in_e < c
 
 
@@ -113,23 +120,31 @@ class _Plan(NamedTuple):
     dropped_frac: torch.Tensor
 
 
-def _dispatch(xt: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig,
-              capacity_factor: float):
-    """Route xt [T, D] and scatter it into the [E, C, D] buffer."""
+def _dispatch(xt: torch.Tensor, routed: tuple, cfg: LMConfig, c: int,
+              ahead=None, experts: tuple | None = None):
+    """Scatter xt [T, D], routed = router_topk's (gates, ids, probs),
+    into the [E, C, D] buffer (C = c slots an expert). On a mesh shard,
+    `ahead(ids)` gives each expert's assignments in the DP shards before
+    this one (moe_dispatch's `ahead`), and `experts` = (e0, n) the
+    experts whose slots this rank fills: the buffer is [n, C, D], other
+    assignments are left out as dropped ones are."""
     t, d = xt.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
-    gates, ids, probs = router_topk(router_w, xt, k)
-    c = capacity(t, cfg, capacity_factor)
-    order, sorted_e, pos_in_e, keep = moe_dispatch(ids, c)
+    gates, ids, probs = routed
+    order, sorted_e, pos_in_e, keep = moe_dispatch(
+        ids, c, None if ahead is None else ahead(ids))
     dropped_frac = 1.0 - keep.float().mean()
+    e0, n = experts or (0, e)
+    if experts is not None:
+        keep = keep & (sorted_e >= e0) & (sorted_e < e0 + n)
     g_flat = gates.reshape(t * k).to(xt.dtype)
 
     tok = order // k                                  # token of each slot
-    safe_e = torch.where(keep, sorted_e, 0)
+    safe_e = torch.where(keep, sorted_e - e0, 0)
     safe_pos = torch.where(keep, pos_in_e, 0)
     keep_x = keep[:, None].to(xt.dtype)
     vals = xt[tok] * keep_x                           # [T*K, D]
-    buf = torch.zeros(e, c, d, dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros(n, c, d, dtype=xt.dtype, device=xt.device)
     # dropped rows add zeros at slot (0, 0), as in the reference
     buf.index_put_((safe_e, safe_pos), vals, accumulate=True)
     return buf, _Plan(order, safe_e, safe_pos, keep_x, g_flat, ids, probs,
@@ -143,14 +158,21 @@ def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"].to(buf.dtype))
 
 
-def _combine(y_buf: torch.Tensor, plan: _Plan, k: int) -> torch.Tensor:
-    """Gather back, gate, unsort, sum over k -> [T, D]."""
+def _gather(y_buf: torch.Tensor, plan: _Plan) -> torch.Tensor:
+    """Each assignment's expert output, back in (token, k) order (zero
+    where dropped) -> [T*K, D]."""
     tk, d = plan.order.shape[0], y_buf.shape[-1]
     y_sorted = y_buf[plan.safe_e, plan.safe_pos] * plan.keep_x
-    y_sorted = y_sorted * plan.g_flat[plan.order][:, None]
     y_flat = torch.zeros(tk, d, dtype=y_buf.dtype, device=y_buf.device)
     y_flat[plan.order] = y_sorted
-    return y_flat.reshape(tk // k, k, d).sum(1)
+    return y_flat
+
+
+def _weigh(y_flat: torch.Tensor, g_flat: torch.Tensor, k: int
+           ) -> torch.Tensor:
+    """Gate each assignment's output and sum over k -> [T, D]."""
+    tk, d = y_flat.shape
+    return (y_flat * g_flat[:, None]).reshape(tk // k, k, d).sum(1)
 
 
 def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
@@ -161,10 +183,14 @@ def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
     return linear(sh["down"], hg * hu)
 
 
-def _aux(plan: _Plan, e: int) -> torch.Tensor:
-    """Switch-style load-balancing loss."""
-    me = plan.probs.mean(0)
-    ce = F.one_hot(plan.ids[:, 0], e).float().mean(0)
+def _aux(plan: _Plan, e: int, mean=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: e * sum(me * ce) of the mean
+    router probability and the mean top-1 share of each expert over all
+    tokens (`mean(v)` makes a shard's mean the mean over every DP
+    shard)."""
+    mean = mean or (lambda v: v)
+    me = mean(plan.probs.mean(0))
+    ce = mean(F.one_hot(plan.ids[:, 0], e).float().mean(0))
     return e * torch.sum(me * ce)
 
 
@@ -176,8 +202,10 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: LMConfig, *,
         return _moe_ffn_mesh(p, x, cfg, capacity_factor)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    buf, plan = _dispatch(xt, p["router"]["w"], cfg, capacity_factor)
-    y = _combine(_experts(p, buf), plan, cfg.moe_top_k)
+    routed = router_topk(p["router"]["w"], xt, cfg.moe_top_k)
+    buf, plan = _dispatch(xt, routed, cfg,
+                          capacity(b * s, cfg, capacity_factor))
+    y = _weigh(_gather(_experts(p, buf), plan), plan.g_flat, cfg.moe_top_k)
     if "shared" in p:
         y = y + _shared(p, xt)
     return y.reshape(b, s, d), MoEMetrics(_aux(plan, cfg.moe_experts),
@@ -186,40 +214,89 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: LMConfig, *,
 
 def _moe_ffn_mesh(p: Params, x: torch.Tensor, cfg: LMConfig,
                   capacity_factor: float):
-    """The layer on a mesh (DTensors). x is laid out batch over the DP
-    axes; each DP shard routes and dispatches its own tokens (capacity
-    from its token count: the dispatch's sort and scatter have no
-    DTensor rules) into its slice of the [E, C, D] buffer, whose
-    capacity axis is sharded over the DP axes and, for the experts, its
-    expert axis over `model` (expert parallelism, the experts' weight
-    shards gathered by DTensor as FSDP does); each shard gathers its
-    results back. The shared experts and the metrics run on DTensors.
-    On a one-rank mesh this is the plain layer."""
+    """The layer on a mesh (DTensors), with the plain layer's result.
+    x is laid out batch over the DP axes. Each rank routes its shard's
+    tokens; the expert counts of all shards (an all-gather of [E]
+    ints) place each assignment where the global sort puts it, so the
+    capacity (from the global token count), the dropped assignments and
+    the slots are the plain layer's. Each rank scatters its tokens into
+    the [E / M, C, D] slots of its `model` rank's experts (expert
+    parallelism where M divides E), a partial sum over the DP ranks that
+    is reduce-scattered onto the capacity axis; the experts run on their
+    shard, the results are all-gathered back over the DP axes, each
+    rank gathers its tokens' results from its experts, and the gated
+    sum over k, partial over `model`, is completed there. The
+    load-balancing loss and the dropped fraction are the global ones.
+
+    Gradients: a local tensor that feeds only this rank's share of a
+    sum (the router weights over the DP ranks; x, the gates and the
+    gathered results over `model` or the DP ranks) declares its
+    gradient partial there (`to_local`'s / `from_local`'s layouts), so
+    DTensor sums it."""
     mesh = x.device_mesh
     e, k = cfg.moe_experts, cfg.moe_top_k
     x = constrain_spec(x, ("data", None, None))
     b, s, d = x.shape
-    batch_sharded = [pl.is_shard(0) for pl in x.placements]
-    whole = [Replicate()] * mesh.ndim
-    router_w = p["router"]["w"].redistribute(mesh, whole).to_local()
-    xt = x.to_local().reshape(-1, d)
-    buf, plan = _dispatch(xt, router_w, cfg, capacity_factor)
+    dp = [i for i, q in enumerate(x.placements) if q.is_shard(0)]
+    n_dp = math.prod(mesh.size(i) for i in dp)
+    coord = mesh.get_coordinate()
+    ep = activation_sharding(mesh, (e,), ("model",)).spec[0] is not None
+    m = mesh.mesh_dim_names.index("model") if ep else None
 
-    cap_pl = [Shard(1) if sh else Replicate() for sh in batch_sharded]
-    buf = DTensor.from_local(buf, mesh, cap_pl, run_check=False)
-    y_buf = _experts(p, constrain_spec(buf, (
-        "model", "data" if any(batch_sharded) else None, None)))
-    y_buf = y_buf.redistribute(mesh, cap_pl).to_local()
+    def pl(on_dp, on_model):
+        """Placements: `on_dp` over the DP dims of x's batch, `on_model`
+        over `model` where the experts are split over it."""
+        return [on_dp if i in dp else on_model if i == m else Replicate()
+                for i in range(mesh.ndim)]
+
+    whole = [Replicate()] * mesh.ndim
+    router_w = p["router"]["w"].redistribute(mesh, whole).to_local(
+        grad_placements=pl(Partial(), Replicate()))
+    xt = x.to_local().reshape(-1, d)
+    # the scatter's view of x: on `model`, each rank's experts' share
+    xt_e = x.to_local(grad_placements=pl(Shard(0), Partial())
+                      ).reshape(-1, d)
+
+    def ahead(ids):
+        """Each expert's assignments in the DP shards before this one."""
+        flat = ids.reshape(-1)
+        mine = torch.zeros(e, dtype=torch.int64, device=ids.device
+                           ).scatter_add_(0, flat, torch.ones_like(flat))
+        every = DTensor.from_local(mine[None], mesh, pl(Shard(0),
+                                                        Replicate()),
+                                   run_check=False).full_tensor()
+        rank = 0
+        for i in dp:
+            rank = rank * mesh.size(i) + coord[i]
+        return every[:rank].sum(0)
+
+    e_n = e // mesh.size(m) if ep else e
+    c = capacity(xt.shape[0] * n_dp, cfg, capacity_factor)
+    buf, plan = _dispatch(xt_e, router_topk(router_w, xt, k), cfg, c,
+                          ahead, (coord[m] * e_n, e_n) if ep else None)
+
+    # [E, C, D]: this rank's experts, a partial sum over the DP ranks,
+    # then the capacity axis over them; the experts' output and its
+    # gradient laid out alike (a partial gradient left as it is would
+    # run the experts' backward at the whole capacity)
+    spec = ("model", "data", None)
+    buf = DTensor.from_local(buf, mesh, pl(Partial(), Shard(0)),
+                             run_check=False)
+    y_buf = constrain_spec(_experts(p, constrain_spec(buf, spec)), spec)
+    y_buf = y_buf.redistribute(mesh, pl(Replicate(), Shard(0))).to_local(
+        grad_placements=pl(Partial(), Shard(0)))
+    y_flat = DTensor.from_local(_gather(y_buf, plan), mesh,
+                                pl(Shard(0), Partial()), run_check=False)
+    gates = DTensor.from_local(plan.g_flat, mesh, pl(Shard(0), Replicate()),
+                               run_check=False)
+    y = _weigh(y_flat, gates, k)
     # laid out (and its gradient) as x, so the backward's merge of the
     # gradient into rows meets no second sharded dim
-    y = constrain_spec(DTensor.from_local(
-        _combine(y_buf, plan, k), mesh,
-        [Shard(0) if sh else Replicate() for sh in batch_sharded],
-        run_check=False).reshape(b, s, d), ("data", None, None))
+    y = constrain_spec(y.reshape(b, s, d), ("data", None, None))
     if "shared" in p:
         y = y + _shared(p, x)
-    mean = [Partial("avg") if sh else Replicate() for sh in batch_sharded]
-    metrics = MoEMetrics(*(DTensor.from_local(m, mesh, mean,
-                                              run_check=False)
-                           for m in (_aux(plan, e), plan.dropped_frac)))
-    return y, metrics
+
+    def mean(v):
+        return DTensor.from_local(v / n_dp, mesh, pl(Partial(), Replicate()),
+                                  run_check=False).redistribute(mesh, whole)
+    return y, MoEMetrics(_aux(plan, e, mean), mean(plan.dropped_frac))

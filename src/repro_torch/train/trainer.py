@@ -40,18 +40,11 @@ from repro_torch.models import dit as dit_mod
 from repro_torch.models import mmdit as mmdit_mod
 from repro_torch.models import moe_lm, swin as swin_mod, transformer
 from repro_torch.models import vit as vit_mod
+from repro_torch.models.layout import TensorSpec  # noqa: F401 (re-exported)
 from repro_torch.models.mmdit import TXT_TOKENS
 from repro_torch.scene import prng
 from repro_torch.train import optim
 from repro_torch.train.optim import tree_leaves, tree_map
-
-
-@dataclass(frozen=True)
-class TensorSpec:
-    """The shape and dtype of one batch entry (what
-    `jax.ShapeDtypeStruct` is to the reference)."""
-    shape: tuple
-    dtype: torch.dtype
 
 
 @dataclass(frozen=True)

@@ -24,6 +24,15 @@
 - In a one-rank gloo group: build_cell's fn on the cell's args laid out
   on a 1 x 1 mesh (DTensors) gives the plain tensors' outputs exactly
   (ViT serve, Swin serve at batch 1, the DiT sampler).
+- On a (2, 2) mesh of 4 gloo ranks, SMOKE configs in float32 at the
+  shapes cut to SMOKE size (tests/torch_dist.py `_small_shapes`):
+  build_cell's fn on DTensors against the plain tensors' run for the
+  split-S decode (batch 4 and 1), the per-shard GQA and MLA decode,
+  the MoE prefill, an MoE-GQA decode, and the MoE and Swin train steps
+  (check_step's float32 tolerances); every other output within 1e-5 of
+  its largest magnitude (sums in another order across the shards); and
+  moe_ffn alone at a capacity that drops assignments: output, aux loss
+  and dropped fraction the plain layer's.
 """
 import pytest
 
@@ -46,10 +55,12 @@ from repro_torch.models import kvcache as kvc  # noqa: E402
 from torch_dist import (  # noqa: E402
     analysis_rank,
     launch_rank,
+    mesh_values_rank,
     one_rank_values_rank,
     spawn,
     spawn_alone,
 )
+from torch_train_inputs import check_step  # noqa: E402
 
 SINGLE = ((16, 16), ("data", "model"))
 MULTI = ((2, 16, 16), ("pod", "data", "model"))
@@ -72,6 +83,22 @@ PARITY = [("vit-b16", "serve_b128"), ("dit-l2", "gen_fast")]
 # DTensor args on a one-rank mesh vs plain tensors: the outputs equal
 VALUES = [("vit-b16", "serve_b128"), ("swin-b", "serve_b1"),
           ("dit-l2", "gen_fast")]
+# DTensor args on a (2, 2) mesh vs plain tensors: (arch, shape,
+# sp_threshold); a decode cell also at a position in the first `model`
+# rank's half of its cache
+SP_OFF = 262144
+MESH_CASES = [("stablelm-3b", "decode_32k", 32),         # split-S
+              ("stablelm-3b", "decode_32k", SP_OFF),     # heads over model
+              ("stablelm-3b", "long_500k", 64),          # split-S, batch 1
+              ("deepseek-v3-671b", "decode_32k", SP_OFF),
+              ("deepseek-v3-671b", "prefill_32k", SP_OFF),
+              ("kimi-k2-1t-a32b", "decode_32k", 32),
+              ("deepseek-v3-671b", "train_4k", SP_OFF),
+              ("swin-b", "cls_224", SP_OFF)]
+MESH_TRAIN = {"train_4k", "cls_224"}
+MESH_REL = 1e-5
+# moe_ffn alone: (arch, batch, seq, capacity_factor)
+MOE_CASE = ("deepseek-v3-671b", 4, 16, 1.0)
 # analysis vs a direct run: (arch, shape, SMOKE overrides); the MMDiT's
 # double:single blocks at flux-dev's 1:2
 ANALYSIS = [("stablelm-3b", "decode_32k", {}),
@@ -88,7 +115,10 @@ def fake_runs(tmp_path_factory):
     return {"launch": spawn_alone(launch_rank, CELLS, PARITY),
             "analysis": spawn_alone(analysis_rank, ANALYSIS),
             "values": spawn(one_rank_values_rank, 1,
-                            tmp_path_factory.mktemp("launch"), VALUES)}
+                            tmp_path_factory.mktemp("launch"), VALUES),
+            "mesh": spawn(mesh_values_rank, 4,
+                          tmp_path_factory.mktemp("mesh"), MESH_CASES,
+                          MOE_CASE)}
 
 
 def j_leaves(tree):
@@ -233,3 +263,93 @@ def test_analysis_extrapolation_is_exact(case, fake_runs):
 def test_one_rank_mesh_run_equals_plain(cell, fake_runs):
     n_leaves, worst = fake_runs["values"].join()[0][cell]
     assert n_leaves >= 1 and worst == 0.0
+
+
+def _as_torch(tree):
+    return shd.tree_map_with_path(
+        lambda _, a: torch.as_tensor(a) if hasattr(a, "dtype") else a, tree)
+
+
+def _assert_close(got, want, label):
+    for (path, g), (wpath, w) in zip(t_leaves(got), t_leaves(want)):
+        assert path == wpath, label
+        g, w = torch.as_tensor(g), torch.as_tensor(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, (label, path)
+        if not w.is_floating_point():
+            assert torch.equal(g, w), (label, path)
+            continue
+        top = float(w.abs().max())
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= MESH_REL * top, (label, path, err, top)
+
+
+@pytest.mark.parametrize("case", MESH_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-sp{c[2]}")
+def test_mesh_run_equals_plain(case, fake_runs):
+    results = fake_runs["mesh"].join()[0]
+    keys = [k for k in results if k[:3] == case]
+    assert len(keys) == (2 if "decode" in case[1] or "500k" in case[1]
+                         else 1)
+    for key in keys:
+        got, want = results[key]
+        if case[1] in MESH_TRAIN:
+            check_step(_as_torch(got), _as_torch(want), torch.float32,
+                       str(key))
+        else:
+            _assert_close(got, want, key)
+
+
+def test_moe_layer_on_mesh_equals_plain(fake_runs):
+    """The global dispatch: capacity from the global token count, the
+    plain layer's dropped assignments, and the global aux loss."""
+    (y, (aux, dropped)), (y0, (aux0, dropped0)) = \
+        fake_runs["mesh"].join()[0]["moe"]
+    assert dropped0 > 0           # the case drops assignments
+    assert dropped == dropped0
+    assert aux == pytest.approx(aux0, rel=1e-6)
+    _assert_close({"y": y}, {"y": y0}, "moe")
+
+
+@pytest.mark.parametrize("hook", ["alltoall", "propagation"])
+def test_collective_recorder_refuses_a_torch_without_its_hooks(
+        hook, monkeypatch):
+    """The recorder wraps two DTensor internals; where a PyTorch lacks
+    one it raises (its counts would silently change) and leaves nothing
+    wrapped."""
+    from torch.distributed.tensor import placement_types as pt
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    prop = "_propagate_tensor_meta_non_cached"
+    owner, name = {"alltoall": (pt, "shard_dim_alltoall"),
+                   "propagation": (ShardingPropagator, prop)}[hook]
+    before = (pt.shard_dim_alltoall, getattr(ShardingPropagator, prop))
+    with monkeypatch.context() as m:
+        m.delattr(owner, name)
+        with pytest.raises(RuntimeError, match=name):
+            with shd.CollectiveRecorder():
+                pass
+    assert (pt.shard_dim_alltoall, getattr(ShardingPropagator, prop)) \
+        == before
+
+
+def test_models_import_no_layer_above_them():
+    """The models lay tensors out with models/layout.py: importing every
+    model module loads none of the trainer, the sharding rules or the
+    launchers."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import repro_torch.models.kvcache, repro_torch.models.moe_lm\n"
+            "import repro_torch.models.vit, repro_torch.models.swin\n"
+            "import repro_torch.models.diffusion, repro_torch.models.mmdit\n"
+            "print(sorted(m for m in sys.modules if m.startswith(("
+            "'repro_torch.launch', 'repro_torch.distributed', "
+            "'repro_torch.train.trainer'))))\n")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"

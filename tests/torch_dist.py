@@ -553,3 +553,122 @@ def one_rank_values_rank(rank, cells):
                  if isinstance(w, torch.Tensor) and w.is_floating_point()]
         out[(arch, shape)] = (len(diffs), max(diffs))
     return out
+
+
+# ---------------------------------------------------------------------------
+# rank bodies: tests/test_torch_launch.py, values on a (2, 2) mesh of 4
+# gloo ranks
+# ---------------------------------------------------------------------------
+
+def _small_shapes():
+    """The LM and vision shapes under their names, cut to SMOKE size:
+    batch 4 (1 for long_500k), 16 tokens to train and prefill, a 32- and
+    a 64-position cache to decode, 32-pixel images."""
+    from repro_torch.configs.base import ShapeSpec
+
+    return {"lm": [
+        ShapeSpec("train_4k", "train", seq_len=16, global_batch=4),
+        ShapeSpec("prefill_32k", "prefill", seq_len=16, global_batch=4),
+        ShapeSpec("decode_32k", "decode", seq_len=32, global_batch=4),
+        ShapeSpec("long_500k", "decode", seq_len=64, global_batch=1)],
+        "vision": [
+        ShapeSpec("cls_224", "train", img_res=32, global_batch=4),
+        ShapeSpec("serve_b128", "serve", img_res=32, global_batch=4)]}
+
+
+def _whole_np(tree):
+    """The tree with each tensor as numpy (bf16 as float32, exactly),
+    DTensors gathered whole first (a collective: every rank calls it);
+    other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import tree_map_with_path
+
+    def leaf(_, t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map_with_path(leaf, tree)
+
+
+def _random_cache(cache, rng):
+    """cache with seeded normals in its tensors (the cache's dtype)."""
+    return cache._replace(**{
+        f: torch.as_tensor(rng.standard_normal(tuple(t.shape))
+                           .astype(np.float32)).to(t.dtype)
+        for f, t in zip(cache._fields, cache) if f != "length"})
+
+
+def mesh_values_rank(rank, cases, moe_case):
+    """On a (2, 2) ("data", "model") mesh of the 4 ranks: for each
+    (arch, shape, sp_threshold) of `cases`, at the arch's SMOKE config in
+    float32 and the shapes of `_small_shapes`, build_cell's fn on its
+    args laid out by the in_shardings, beside
+    the same fn on plain tensors (every rank runs both, from one seed).
+    A decode cell runs on a cache of seeded normals at the cell's
+    position and, through its step function, at a position of the
+    first `model` rank's half of the cache. `moe_case` = (arch, batch,
+    seq, capacity_factor): moe_ffn alone on a batch-sharded x, beside
+    the plain layer. Returns {case: (mesh outputs, plain outputs)} as
+    numpy on rank 0, None on the others."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import shapes as shapes_mod
+    from repro_torch.configs.base import _REGISTRY
+    from repro_torch.distributed.sharding import (
+        NamedSharding,
+        param_shardings,
+    )
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import kvcache as kvc
+    from repro_torch.models import moe
+    from repro_torch.train.elastic import reshard
+
+    shapes_mod.FAMILY_SHAPES.update(_small_shapes())
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    out = {}
+
+    def both(fn, make):
+        """(fn on the args of make() laid out on the mesh, fn on those
+        of a second make()), each as numpy."""
+        with implicit_replication():
+            got = _whole_np(fn(*reshard(make(), shardings)))
+        return got, _whole_np(fn(*make()))
+
+    for arch, shape, sp_threshold in cases:
+        name = smoke_variant(arch, dtype=torch.float32)
+        cell = build_cell(name, shape, mesh, sp_threshold=sp_threshold)
+        shardings = cell.in_shardings
+
+        def make(cell=cell):
+            args = cell.make_args(np.random.default_rng(5), "cpu")
+            if len(args) == 3 and hasattr(args[2], "_fields"):
+                args = args[:2] + (_random_cache(
+                    args[2], np.random.default_rng(6)),)
+            return args
+        out[(arch, shape, sp_threshold)] = both(cell.fn, make)
+        if "position" in cell.static_kwargs:
+            cfg = _REGISTRY[name]
+            step = (kvc.mla_decode_step if cfg.mla else
+                    kvc.moe_gqa_decode_step if cfg.moe_experts else
+                    kvc.gqa_decode_step)
+            mid = cell.static_kwargs["position"] // 4
+            out[(arch, shape, sp_threshold, mid)] = both(
+                lambda p, t, c: step(p, cfg, t, c._replace(length=mid)),
+                make)
+
+    arch, b, s, cf = moe_case
+    cfg = _REGISTRY[smoke_variant(arch, dtype=torch.float32)]
+    p = {"moe": moe.moe_init(np.random.default_rng(7), cfg, device="cpu")}
+    x = np.random.default_rng(8).standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)
+    shardings = (param_shardings(p, mesh),
+                 NamedSharding(mesh, ("data", None, None)))
+    out["moe"] = both(
+        lambda p, x: moe.moe_ffn(p["moe"], x, cfg, capacity_factor=cf),
+        lambda: (p, torch.as_tensor(x)))
+    return out if rank == 0 else None
