@@ -1,0 +1,52 @@
+"""Nothing the benchmark runs loads JAX or the JAX package, compared by
+whole top-level names (the port's `repro_torch` begins with `repro`);
+the reference loads nothing of the port."""
+from __future__ import annotations
+
+import subprocess
+import sys
+
+from conftest import ROOT
+
+PROBE = """
+import sys
+sys.path[:0] = [{root!r}, {src!r}]
+{body}
+tops = sorted({{m.split('.')[0] for m in sys.modules}})
+print(' '.join(tops))
+"""
+
+
+def _tops(body: str) -> set:
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE.format(
+            root=str(ROOT), src=str(ROOT / "src"), body=body)],
+        capture_output=True, text=True, check=True, timeout=300)
+    return set(out.stdout.split())
+
+
+def test_forbidden_names_are_whole():
+    sys.path.insert(0, str(ROOT / "bench"))
+    try:
+        import run
+    finally:
+        sys.path.remove(str(ROOT / "bench"))
+    assert run.forbidden_modules(["repro_torch", "repro_torch.fleet.api",
+                                  "torch", "reproduce"]) == []
+    assert run.forbidden_modules(["repro.fleet.api", "jaxlib.xla_client",
+                                  "flax", "jax"]) == ["flax", "jax",
+                                                      "jaxlib", "repro"]
+
+
+def test_reference_loads_nothing_of_the_port():
+    tops = _tops("import bench.reference.episode\n"
+                 "import bench.harness.check")
+    assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
+
+
+def test_harness_loads_no_jax():
+    tops = _tops("import bench.harness.runner\n"
+                 "import repro_torch.fleet.api\n"
+                 "import repro_torch.fleet.runner")
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "flax", "repro"}
