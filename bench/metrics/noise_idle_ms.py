@@ -1,0 +1,7 @@
+"""Device idle time inside the `madeye/noise` span, the render noise
+(`render_noise`), per step of the profiled stretch, ms."""
+from bench.harness.spans import phase_metric
+
+
+def read(ctx):
+    return phase_metric(ctx, "noise_idle_ms")

@@ -67,8 +67,7 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      spec at 2 cameras on the card and on the CPU must decide alike;
      oracle_pass on a 256-slot scene;
   8b. drive the serving launcher (`repro_torch.launch.serve.serve`, the
-     `python -m repro_torch.launch.serve` entry point) inside a trace
-     (with NVTX ranges):
+     `python -m repro_torch.launch.serve` entry point) inside a trace:
      at its defaults (5 fps, 20 s: 100 controller steps) with a
      64-camera `tables` fleet and JSONL telemetry, counters set to 0
      just before and read just after (shape_search and budget_walk once
@@ -192,12 +191,7 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      a 1 x 1 mesh, outputs finite; ms on DTensors and on plain tensors,
      achieved TFLOP/s, torch.cuda.max_memory_allocated beside the dry
      run's bytes_per_device;
-  9. time one step of the main path stage by stage (the scene advance
-     and the oracle pass apart), then its learn stage: scoring through
-     per-camera heads, teacher targets, ring harvest and the update,
-     and count the operations of one learn hook that wait for the
-     card (sync debug mode);
- 10. print one JSON line describing every kernel (its launches on the
+  9. print one JSON line describing every kernel (its launches on the
      detector main path; with `serve_launches` its launches on each
      path of phase 8b, for the search kernels `tables_graph_ms`,
      with `slice_launches` its launches on each path of phase 8c, and
@@ -228,7 +222,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -282,7 +275,6 @@ from repro_torch.fleet.runner import (  # noqa: E402
     materialize_scene_tables,
     run_fleet_episode,
 )
-from repro_torch.fleet.step import FleetObs, fleet_step  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
     box_iou,
@@ -327,12 +319,6 @@ from repro_torch.kernels.shape_search.ops import (  # noqa: E402
     budget_walk_plain,
     shape_search_batch,
     shape_search_plain,
-)
-from repro_torch.learn.loop import distill_step  # noqa: E402
-from repro_torch.learn.pairs import (  # noqa: E402
-    harvest_into_buffer,
-    select_sent_windows,
-    teacher_window_targets,
 )
 from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -384,9 +370,7 @@ from repro_torch.obs.events import read_events  # noqa: E402
 from repro_torch.obs.trace import tracing  # noqa: E402
 from repro_torch.scene import observe as observe_module  # noqa: E402
 from repro_torch.scene.observe import (  # noqa: E402
-    detections_obs,
     grid_windows,
-    observe_all_cells,
     teacher_arrays,
 )
 from repro_torch.scene.render import (  # noqa: E402
@@ -1543,6 +1527,14 @@ def _check_tables_result(result, n_cells, label) -> None:
                                  f"disagree on {k}")
 
 
+def fleet_spans(tracer) -> list:
+    """(name, ms) of the tracer's `fleet/*` spans (run_fleet's build,
+    warm-up and steady phases), leaving out the per-step `madeye/*`
+    spans."""
+    return [(e["name"], e["dur"] / 1e3) for e in tracer.events
+            if e["name"].startswith("fleet/")]
+
+
 def serve_phase(dev) -> dict:
     """The serving launcher on the card (phase 8b); returns the search
     kernels' rows of its two tables episodes and every path's launches."""
@@ -1557,7 +1549,7 @@ def serve_phase(dev) -> dict:
     # serve --fleet 64 at its defaults, telemetry to a file, in a trace
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
-    with (tracing(str(trace_path), nvtx=True) as tracer,
+    with (tracing(str(trace_path)) as tracer,
           SearchRecorder() as rec):
         out, _, (result,) = _serve(**SERVE, fleet=N_CAMERAS,
                                    provider="tables",
@@ -1574,7 +1566,7 @@ def serve_phase(dev) -> dict:
     n_chunks = math.ceil(SERVE_STEPS / 16)
     if kinds != ["run_start"] + ["steps"] * n_chunks + ["run_end"]:
         raise AssertionError(f"{label}: events {kinds}")
-    spans = [(e["name"], e["dur"] / 1e3) for e in tracer.events]
+    spans = fleet_spans(tracer)
     missing = {"fleet/build", "fleet/compile", "fleet/steady"} - {
         n for n, _ in spans}
     if missing:
@@ -1621,8 +1613,7 @@ def serve_phase(dev) -> dict:
           f"build_s={t['build_s']:.3f} (episode tables) "
           f"compile_s={t['compile_s']:.3f} steady_s={t['steady_s']:.3f} "
           f"camera_steps_per_s={result.camera_steps_per_s:.2f} spans_ms="
-          + json.dumps({e["name"]: round(e["dur"] / 1e3, 3)
-                        for e in tracer.events})
+          + json.dumps({n: round(d, 3) for n, d in fleet_spans(tracer)})
           + f" launches={counts}", flush=True)
     rows[label] = search_phase(rec.calls, steps, f"[{label}]")
 
@@ -2406,104 +2397,6 @@ def kernel_api_phase(dev, dets) -> dict:
           "launch + N PyTorch rounds each): " + "; ".join(times),
           flush=True)
     return counts
-
-
-def stage_phase(spec: FleetRunSpec, dspec: DistillSpec) -> None:
-    """Where one step's time goes: the main path's first step, stage by
-    stage, with the card synchronised around each (host clock, warm:
-    the second of two passes is reported); then the learn stage of that
-    step under `dspec` (`learn_stages`)."""
-    prep = prepare_fleet_run(spec)
-    p, st, cfg, wl = prep.provider, prep.state, prep.cfg, prep.wl
-    sc, dp = p.init_carry(st)
-    dev = prep.device
-    kinds = torch.as_tensor(kind_mask(p.scene.spec), device=dev)
-    pair_cls = torch.as_tensor(wl.pair_cls, device=dev)
-    res = p.det_cfg.img_res
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    with torch.no_grad():
-        for _ in range(2):
-            ms = {}
-            # SceneProvider.oracle, in its two parts
-            sc1, ms["scene_advance"] = timed(lambda: advance_scene(
-                p.scene.spec, p.scene.params, st.rng, sc, st.step_idx,
-                p.scene.stride))
-            o, ms["oracle"] = timed(lambda: observe_all_cells(
-                p.scene.spec, p.scene.teach, p.scene.params, sc1,
-                st.step_idx * p.scene.stride, p.scene.windows,
-                task_id=wl.task_id, pair_idx=wl.pair_idx,
-                n_zoom=len(cfg.zoom_levels), cam_salt=st.rng[:, 0]))
-            noise, ms["render_noise"] = timed(lambda: render_noise(
-                st.rng, st.step_idx * p.scene.stride, res) * p.noise)
-            dets, ms["shortlist_patchify_detector"] = timed(
-                lambda: p._score_fused(cfg, st, sc1, dp, kinds, noise))
-            do, ms["detections_to_tables"] = timed(
-                lambda: detections_obs(dets, p.scene.windows, pair_cls,
-                                       p.thresh, p.geo_thresh, o.acc_true,
-                                       n_zoom=len(cfg.zoom_levels)))
-            obs = FleetObs(*do, mbps=p.scene.mbps[0], rtt=p.scene.rtt[0])
-            (st2, out), ms["controller_step"] = timed(
-                lambda: fleet_step(cfg, wl, prep.statics, st, obs))
-            learn_ms = learn_stages(dspec, prep, sc1, dp, kinds, noise, st,
-                                    st2, out, timed)
-    total = sum(ms.values())
-    syncs = learn_ms.pop("learn_syncs")
-    print("stages (ms, one step): " + " ".join(
-        f"{k}={v:.3f}" for k, v in {**ms, **learn_ms}.items())
-        + f" total={total:.3f} (frozen step) total_with_learn="
-        f"{total + learn_ms['learn'] + learn_ms['score_learn_vs_fused']:.3f}"
-        f" (learn: head_only={dspec.head_only} {dspec.optimizer}; "
-        f"synchronizing calls in one learn hook: {syncs})", flush=True)
-
-
-def learn_stages(dspec, prep, sc1, dp, kinds, noise, st, st2, out, timed):
-    """The learn stage of one step (DistillSpec `dspec`, the same cell
-    and inputs as the frozen stages): the scoring through per-camera
-    heads that stages the payload (beside the frozen scoring it
-    replaces), then the teacher targets of the sent windows, the ring
-    harvest and the optimizer update. -> {stage: ms}."""
-    p = dataclasses.replace(prep.provider, distill=dspec)
-    cfg = prep.cfg
-    lc = p.init_carry(prep.state)[2]
-    ms = {}
-    (_, lc), t_learn = timed(lambda: p._score_learn(cfg, st, sc1, dp, lc,
-                                                    kinds, noise))
-    _, t_fused = timed(lambda: p._score_fused(cfg, st, sc1, dp, kinds,
-                                              noise))
-    ms["score_learn_vs_fused"] = t_learn - t_fused
-    (sel, ok), ms["learn_select"] = timed(lambda: select_sent_windows(
-        out, len(cfg.zoom_levels), dspec.harvest))
-    tgt, ms["learn_targets"] = timed(lambda: teacher_window_targets(
-        p.scene.spec, p.scene.teach, p.scene.params, sc1,
-        (st2.step_idx - 1) * p.scene.stride, p.scene.windows[sel],
-        p.det_cfg.max_boxes, st2.rng[:, 0]))
-    buf, ms["learn_harvest"] = timed(lambda: harvest_into_buffer(
-        lc.buf, lc.staged, lc.staged_widx, sel, ok, *tgt))
-    lc = lc._replace(buf=buf)
-    _, ms["learn_update"] = timed(lambda: distill_step(dspec, p.det_cfg, lc,
-                                                       1))
-    ms["learn"] = (ms["learn_select"] + ms["learn_targets"]
-                   + ms["learn_harvest"] + ms["learn_update"])
-
-    # the learn hook once more with the card's sync debug mode on: each
-    # operation that waits for the device's queue warns once
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            p.learn(cfg, prep.wl, (sc1, dp, lc), st2, out, 0)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    ms["learn_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
-    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -4183,7 +4076,6 @@ def main() -> int:
     shard = shard_phase(dev, spec, whole)
     torch.cuda.empty_cache()
     launched = launch_phase()
-    stage_phase(spec, DistillSpec())
 
     kernels = []
     for name, r in rows.items():

@@ -94,6 +94,7 @@ from repro_torch.models.detector import (
     params_from_numpy,
 )
 from repro_torch.obs.metrics import step_metrics
+from repro_torch.obs.trace import span
 from repro_torch.scene.observe import (
     TeacherArrays,
     detections_obs,
@@ -219,13 +220,15 @@ class SceneProvider:
                state: FleetState):
         """Advance the scenes one controller step and run the oracle
         pass -> (scene state, SceneObs)."""
-        sc = advance_scene(self.spec, self.params, state.rng, sc,
-                           state.step_idx, self.stride)
-        o = observe_all_cells(self.spec, self.teach, self.params, sc,
-                              state.step_idx * self.stride, self.windows,
-                              task_id=wl.task_id, pair_idx=wl.pair_idx,
-                              n_zoom=len(cfg.zoom_levels),
-                              cam_salt=state.rng[:, 0])
+        with span("madeye/scene"):
+            sc = advance_scene(self.spec, self.params, state.rng, sc,
+                               state.step_idx, self.stride)
+            o = observe_all_cells(self.spec, self.teach, self.params, sc,
+                                  state.step_idx * self.stride,
+                                  self.windows, task_id=wl.task_id,
+                                  pair_idx=wl.pair_idx,
+                                  n_zoom=len(cfg.zoom_levels),
+                                  cam_salt=state.rng[:, 0])
         return sc, o
 
     def observe(self, cfg: FleetConfig, wl: WorkloadSpec, carry,
@@ -356,18 +359,21 @@ class DetectorProvider:
         # oracle pass: only acc_true is used — the teachers grade the
         # camera's choices, they no longer feed its ranking
         sc, o = p.oracle(cfg, wl, sc, state)
-        frame = state.step_idx * p.stride
-        noise_img = render_noise(state.rng, frame, res) * self.noise
-        if learn_on:
-            dets, lc = self._score_learn(cfg, state, sc, dp, lc, kinds,
+        with span("madeye/noise"):
+            frame = state.step_idx * p.stride
+            noise_img = render_noise(state.rng, frame, res) * self.noise
+        with span("madeye/detect"):
+            if learn_on:
+                dets, lc = self._score_learn(cfg, state, sc, dp, lc, kinds,
+                                             noise_img)
+            elif self.fused:
+                dets = self._score_fused(cfg, state, sc, dp, kinds,
                                          noise_img)
-        elif self.fused:
-            dets = self._score_fused(cfg, state, sc, dp, kinds, noise_img)
-        else:
-            dets = self._score_chunked(sc, dp, kinds, noise_img)
-        do = detections_obs(dets, p.windows, pair_cls, self.thresh,
-                            self.geo_thresh, o.acc_true,
-                            n_zoom=len(cfg.zoom_levels))
+            else:
+                dets = self._score_chunked(sc, dp, kinds, noise_img)
+            do = detections_obs(dets, p.windows, pair_cls, self.thresh,
+                                self.geo_thresh, o.acc_true,
+                                n_zoom=len(cfg.zoom_levels))
         obs = FleetObs(*do, mbps=mbps_t, rtt=rtt_t)
         return ((sc, dp, lc) if learn_on else (sc, dp)), obs
 
@@ -846,22 +852,32 @@ def episode_step(cfg: FleetConfig, wl: WorkloadSpec, statics: FleetStatics,
     distill_lr joining it on learning runs), "learn" (the learn aux) and
     with `collect_obs` "obs" (camera 0's observation tables, the
     _TABLE_FIELDS of its FleetObs) where they apply, else it is
-    empty."""
-    xs = tuple(x[e] for x in provider.scan_xs())
-    carry, obs = provider.observe(cfg, wl, carry, state, xs)
-    state2, out = fleet_step(cfg, wl, statics, state, obs)
-    ex = {}
-    if collect_obs:
-        ex["obs"] = {f: getattr(obs, f)[0] for f in _TABLE_FIELDS}
-    if getattr(provider, "learns", False):
-        carry, laux = provider.learn(cfg, wl, carry, state2, out, e)
-        ex["learn"] = laux
-    if metrics is not None:
-        ex["metrics"] = step_metrics(metrics, cfg, provider, state, state2,
-                                     obs, out)
-        if "learn" in ex:
-            ex["metrics"]["distill_loss"] = ex["learn"]["loss"]
-            ex["metrics"]["distill_lr"] = ex["learn"]["lr"]
+    empty.
+
+    With a tracer active or a torch.profiler recording
+    (repro_torch.obs.trace), the step is the span `madeye/step` (arg
+    `e`) and its phases the spans `madeye/scene` (scene advance and
+    oracle pass), `madeye/noise`, `madeye/detect` (shortlist, crops,
+    detector, tables), `madeye/controller` (fleet_step) and
+    `madeye/learn`."""
+    with span("madeye/step", e=e):
+        xs = tuple(x[e] for x in provider.scan_xs())
+        carry, obs = provider.observe(cfg, wl, carry, state, xs)
+        with span("madeye/controller"):
+            state2, out = fleet_step(cfg, wl, statics, state, obs)
+        ex = {}
+        if collect_obs:
+            ex["obs"] = {f: getattr(obs, f)[0] for f in _TABLE_FIELDS}
+        if getattr(provider, "learns", False):
+            with span("madeye/learn"):
+                carry, laux = provider.learn(cfg, wl, carry, state2, out, e)
+            ex["learn"] = laux
+        if metrics is not None:
+            ex["metrics"] = step_metrics(metrics, cfg, provider, state,
+                                         state2, obs, out)
+            if "learn" in ex:
+                ex["metrics"]["distill_loss"] = ex["learn"]["loss"]
+                ex["metrics"]["distill_lr"] = ex["learn"]["lr"]
     return state2, carry, out, ex
 
 

@@ -5,8 +5,10 @@
               labels, budget counters) — per-step [E, F] tensors on the
               device, zero cost when off
   trace.py    host span API -> Chrome trace JSON (build / warm-up /
-              steady-state phases; chrome://tracing, Perfetto) with
-              optional NVTX ranges
+              steady-state phases, and each controller step's phases;
+              chrome://tracing, Perfetto); while a torch.profiler
+              records, the same spans as host ranges on the clock of
+              its kernels
   events.py   FleetResult -> chunked JSONL event stream with per-camera
               health summaries (`serve --fleet N --telemetry PATH|-`)
 

@@ -26,7 +26,6 @@ from repro_torch.fleet.api import FleetRunSpec, prepare_fleet_run
 from repro_torch.fleet.runner import resolve_device
 from repro_torch.models import detector as det
 from repro_torch.models.layers import full_float32
-from repro_torch.obs.trace import span
 
 
 # images [B, H, W, 3] -> Detections ([B, max_boxes, ...])
@@ -137,8 +136,7 @@ def _controller_episode(spec: FleetRunSpec, mesh, device):
     given (every rank of it calls this; each returns the whole fleet's
     outputs)."""
     prep = prepare_fleet_run(spec, mesh=mesh, device=device)
-    with span("engine/fleet_controller", provider=spec.provider), \
-            torch.no_grad(), full_float32():
+    with torch.no_grad(), full_float32():
         state, out, ex, carry = prep.episode()
     if getattr(prep.provider, "learns", False):
         return state, out, ex, carry

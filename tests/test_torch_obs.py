@@ -1,6 +1,9 @@
 """The port's host traces (`repro_torch.obs.trace`) and JSONL telemetry
 (`repro_torch.obs.events`), after the reference's tests/test_obs.py, and
-the port's event stream against `repro`'s on the same run.
+the port's event stream against `repro`'s on the same run. The spans
+inside a controller step are also held as torch.profiler ranges: in
+order, covering the step, on the tracer's clock, and changing no
+decision.
 
 Events are compared key for key: ints, strings and lists of them exactly,
 floats within 1e-6 (float32 means and EWMA labels of equal decisions),
@@ -33,6 +36,11 @@ from repro_torch.fleet import (  # noqa: E402
     FleetRunSpec,
     run_fleet,
 )
+from repro_torch.distributed.sharding import tree_leaves  # noqa: E402
+from repro_torch.fleet.api import prepare_fleet_run  # noqa: E402
+from repro_torch.fleet.runner import episode_step  # noqa: E402
+from repro_torch.learn.spec import DistillSpec  # noqa: E402
+from repro_torch.models.layers import full_float32  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     SCHEMA_VERSION,
     Tracer,
@@ -108,6 +116,105 @@ def test_tracer_non_json_args_stringified():
         pass
     args = tr.events[0]["args"]
     assert isinstance(args["arr"], str) and isinstance(args["t"], str)
+
+
+def test_span_without_recorder_is_the_shared_null_context():
+    assert active_tracer() is None
+    assert not torch.autograd._profiler_enabled()
+    assert span("a") is span("b", x=1)
+
+
+PHASES = ("madeye/scene", "madeye/noise", "madeye/detect",
+          "madeye/controller")
+
+
+def _detector_prep(distill, n_steps=2):
+    spec = FleetRunSpec(provider="detector", n_cameras=2, n_steps=n_steps,
+                        seed=3, shortlist_k=6, budget={"fps": 3.0},
+                        distill=distill)
+    return prepare_fleet_run(spec, device="cpu")
+
+
+def _host_events(prof) -> list:
+    """(name, start_ns, end_ns) of the profiler's host events."""
+    return [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CPU]
+
+
+@pytest.mark.parametrize("distill", [None, DistillSpec()],
+                         ids=["frozen", "distill"])
+def test_step_phases_are_profiler_ranges(distill):
+    """Two detector steps under a CPU profiler: each `madeye/step` range
+    holds the phases in order, and they cover it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prep = _detector_prep(distill)
+    p = prep.provider
+    state, carry = prep.state, p.init_carry(prep.state)
+    with torch.no_grad(), full_float32(), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        for e in range(2):
+            state, carry, _, _ = episode_step(prep.cfg, prep.wl,
+                                              prep.statics, state, p,
+                                              carry, e)
+    host = _host_events(prof)
+    steps = sorted((a, b) for n, a, b in host if n == "madeye/step")
+    assert len(steps) == 2
+    want = PHASES + (("madeye/learn",) if distill else ())
+    for a, b in steps:
+        inside = sorted((s, n, t) for n, s, t in host
+                        if n.startswith("madeye/") and n != "madeye/step"
+                        and a <= s and t <= b)
+        assert tuple(n for _, n, _ in inside) == want
+        assert all(inside[i][2] <= inside[i + 1][0]
+                   for i in range(len(inside) - 1))     # no overlap
+        assert sum(t - s for s, _, t in inside) >= 0.9 * (b - a)
+
+
+def test_spans_leave_the_episode_unchanged():
+    """A distilling detector episode gives bit-identical decisions and
+    final state with the spans recorded (a profiler and a tracer) and
+    without."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def episode(recorded):
+        prep = _detector_prep(DistillSpec(), n_steps=3)
+        with torch.no_grad(), full_float32():
+            if not recorded:
+                return prep.episode()
+            with profile(activities=[ProfilerActivity.CPU]), \
+                    tracing() as tr:
+                res = prep.episode()
+            assert sum(e["name"] == "madeye/step"
+                       for e in tr.events) == 3
+            return res
+
+    plain, recorded = episode(False), episode(True)
+    for k in ("chosen", "sent"):
+        assert torch.equal(getattr(plain[1], k), getattr(recorded[1], k))
+    # the final controller state and carry (scene, learned heads, ring)
+    want = tree_leaves((plain[0], plain[3]))
+    got = tree_leaves((recorded[0], recorded[3]))
+    assert len(got) == len(want) > 10
+    assert all(torch.equal(x, y) for x, y in zip(got, want)
+               if isinstance(x, torch.Tensor))
+
+
+def test_tracer_and_profiler_share_a_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            tracing() as tr:
+        with span("probe"):
+            torch.ones(4).sum()
+    (ev,) = [e for e in tr.events if e["name"] == "probe"]
+    (start_ns,) = [a for n, a, _ in _host_events(prof) if n == "probe"]
+    assert abs(ev["ts"] - start_ns / 1e3) < 1e3         # microseconds
+    # an operator-scope range: a user annotation would be mirrored onto
+    # the device's timeline as an event over the kernels under it
+    (fe,) = [e for e in prof.events() if e.name == "probe"]
+    assert fe.scope != int(torch._C._profiler.RecordScope.USER_SCOPE)
 
 
 # ---------------------------------------------------------------------------
