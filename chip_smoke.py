@@ -14,21 +14,24 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      crop_patchify at the main path's shapes, then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
      with q_offset, bf16, and 192- and 256-wide heads), box_iou (bit-equal),
-     frame_delta and rmsnorm at full-size shapes — and time each with
-     CUDA events beside its bound and, where one PyTorch call computes
-     the same function, that call; kernels whose device time is near or
-     below a Python call's dispatch time also get a device-only time (a
-     CUDA graph of the calls, replayed);
+     frame_delta and rmsnorm at full-size shapes, threefry (bit-equal)
+     on every draw of a scene step and on the render noise — and time
+     each with CUDA events beside its bound and, where one PyTorch call
+     computes the same function, that call; kernels whose device time
+     is near or below a Python call's dispatch time also get a
+     device-only time (a CUDA graph of the calls, replayed);
   4. check the port end to end on a small input: run_fleet on the card
      and on the CPU (plain versions) must make the same decisions;
   5. drive the main path once — run_fleet(provider="detector") at the
      full width of madeye-approx, 64 cameras, 8 steps, shortlist_k=18 —
      with the launch counters set to 0 just before and read just after;
      each of the four main-path kernels (shape_search, budget_walk,
-     oracle_pass, crop_patchify) must have launched once per step, and
-     no other (run_fleet runs the reference's plain attention, the shape
-     search scores its candidates inside shape_search and the oracle
-     pass rasterizes inside oracle_pass); the result must be well
+     oracle_pass, crop_patchify) must have launched once per step,
+     threefry 19 times in each step (the scene advance's 16 draws and
+     the render noise's 3), and no other (run_fleet runs the
+     reference's plain attention, the shape search scores its
+     candidates inside shape_search and the oracle pass rasterizes
+     inside oracle_pass); the result must be well
      formed. The inputs and outputs of every oracle_pass, shape_search
      and budget_walk call of the episode are recorded, and the plain
      versions must give the same tables and make the same decisions on
@@ -203,6 +206,11 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      the card line again, and as the last line {"ok": true, "device":
      {...}}.
 
+In every phase, threefry's launches must equal the draws of
+scene/prng.py made on the card (counted by wrapping its public draws):
+no draw on the card runs the plain version. The phases' "and no other"
+checks read the other kernels.
+
 Imports torch, the port (src/repro_torch), tests/torch_zoo_weights.py
 (numpy-drawn zoo weights), tests/torch_train_inputs.py (numpy-drawn
 train-step inputs and their comparison) and tests/torch_dist.py (the
@@ -268,6 +276,7 @@ from repro_torch.fleet.state import (  # noqa: E402
     fleet_statics,
     workload_spec,
 )
+from repro_torch.fleet import api as api_module  # noqa: E402
 from repro_torch.fleet import runner as runner_module  # noqa: E402
 from repro_torch.fleet import step as step_module  # noqa: E402
 from repro_torch.fleet.runner import (  # noqa: E402
@@ -429,6 +438,13 @@ FULL_STEPS = 3          # the full-param distill episode's depth
 N_CHANNELS = 8          # 4 workload pairs, student + teacher draws
 MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
                      "crop_patchify")
+# scene/prng.py's draws: one threefry launch each on the card; a detector
+# step at stride 1 makes 16 in the scene advance (fold_in, split x 3,
+# randint x 4, normal x 5, uniform x 3) and 3 in the render noise
+# (fold_in x 2, normal)
+DRAW_KERNEL = "threefry"
+DRAWS = ("fold_in", "split", "random_bits", "uniform", "randint", "normal")
+STEP_DRAWS = 16 + 3
 # the card's published peaks (NVIDIA H100 SXM data sheet: HBM3 bandwidth,
 # float32 outside the tensor cores, dense TF32 and bf16 on the tensor
 # cores)
@@ -436,6 +452,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
 PEAK_BF16_PER_S = 989e12
+# 32-bit integer operations: 64 INT32 lanes an SM (Hopper white paper),
+# 132 SMs at the 1.98 GHz of the float32 rate above
+PEAK_INT32_PER_S = 132 * 64 * 1.98e9
+# a threefry block function's integer operations: 20 rounds of add,
+# rotate and xor, 5 key injections of 3 adds, the key schedule's 2 xors
+# and the first 2 adds
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 # float32 products on the tensor cores run in split TF32: three TF32
 # products for each float32 one (csrc/wgmma.cuh)
 SPLIT_TF32 = 3
@@ -610,6 +633,11 @@ SOURCES = {
     "rmsnorm": (
         "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm/rmsnorm.py:27"),
+    # the reference draws through jax.random, whose threefry XLA fuses
+    "threefry": (
+        "src/repro_torch/csrc/threefry.cu",
+        "none: jax.random's threefry (src/repro/scene/scene.py, "
+        "src/repro/scene/render.py)"),
 }
 
 
@@ -688,7 +716,8 @@ def bound(n_bytes: float, n_ops: float,
         return t_bytes, "bytes", "3.35 TB/s"
     rate = {PEAK_FP32_PER_S: "FP32 67 TFLOP/s",
             PEAK_TF32_PER_S: "3xTF32 at 495 TFLOP/s",
-            PEAK_BF16_PER_S: "bf16 989 TFLOP/s"}[peak_ops]
+            PEAK_BF16_PER_S: "bf16 989 TFLOP/s",
+            PEAK_INT32_PER_S: "INT32 16.7 Top/s"}[peak_ops]
     return t_ops, "operations", rate
 
 
@@ -829,6 +858,68 @@ def kernel_phase(dev) -> dict:
         bound=patchify_bound(cp_args, cp_kw))
     for name, r in rows.items():
         print_row(name, r)
+    return rows
+
+
+def _bits_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to the plain version")
+
+
+def threefry_phase(dev) -> dict:
+    """threefry against scene/prng.py's plain version, bit-equal, at the
+    main path's shapes: every draw of a scene step (64 cameras, 22 slots;
+    keys sliced from split(keys, 8) as _spawn_draws takes them) and the
+    render noise [64, 224, 224, 3]; the noise draw and one scene draw
+    timed beside their bounds (bytes written once against the block
+    function's integer operations). The scene draws take less device
+    time than a Python call takes to dispatch, so their graph_ms is
+    the device's time."""
+    m = SceneSpec().max_objects
+    keys = prng.fold_in_plain(prng.PRNGKey(7, dev),
+                              torch.arange(N_CAMERAS, device=dev))
+    ks = prng.split_plain(keys, 8)
+    step = torch.full((N_CAMERAS,), 5, dtype=torch.int64, device=dev)
+    cases = [
+        ("fold_in", prng.fold_in, prng.fold_in_plain, (keys, step)),
+        ("split", prng.split, prng.split_plain, (keys, 4)),
+        ("randint", prng.randint, prng.randint_plain,
+         (ks[:, 0], (m,), 0, 10)),
+        ("normal", prng.normal, prng.normal_plain, (ks[:, 1], (m, 2))),
+        ("uniform", prng.uniform, prng.uniform_plain,
+         (ks[:, 4], (m,), 1.1, 1.9)),
+        ("uniform", prng.uniform, prng.uniform_plain, (ks[:, 6], (m, 4))),
+    ]
+    for name, fn, plain, args in cases:
+        _bits_equal(f"threefry {name}", fn(*args), plain(*args))
+    res = get_config("madeye-approx").img_res
+    shape = (res, res, 3)
+    got, want = prng.normal(keys, shape), prng.normal_plain(keys, shape)
+    _bits_equal("threefry normal (noise)", got, want)
+    n = got.numel()
+    del got, want
+    print(f"threefry: bit-equal to the plain version on the scene step's "
+          f"draws ({len(cases)} calls at {N_CAMERAS} cameras x {m} slots) "
+          f"and the render noise ({n} samples)", flush=True)
+    rows = {"threefry": dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: prng.normal(keys, shape), 50),
+        graph_ms=graph_ms(lambda: prng.normal(keys, shape), 20),
+        plain_ms=cuda_ms(lambda: prng.normal_plain(keys, shape), 5),
+        bound=bound(4 * n + 16 * N_CAMERAS, THREEFRY_OPS * n,
+                    PEAK_INT32_PER_S), library_ms=None)}
+    print_row(f"threefry [normal {N_CAMERAS} x {res} x {res} x 3]",
+              rows["threefry"])
+    scene = (ks[:, 1], (m, 2))
+    row = dict(max_abs_err=0.0, ms=cuda_ms(lambda: prng.normal(*scene), 200),
+               graph_ms=graph_ms(lambda: prng.normal(*scene), 200),
+               plain_ms=cuda_ms(lambda: prng.normal_plain(*scene), 50),
+               bound=bound(4 * N_CAMERAS * m * 2 + 16 * N_CAMERAS,
+                           THREEFRY_OPS * N_CAMERAS * m * 2,
+                           PEAK_INT32_PER_S), library_ms=None)
+    print_row(f"threefry [scene normal {N_CAMERAS} x {m} x 2]", row)
     return rows
 
 
@@ -1153,6 +1244,40 @@ def _clone(x):
     return x
 
 
+_draws = {"n": 0, "wrapped": False}
+
+
+def reset_counts() -> None:
+    """The kernels' launch counters and the count of draws on the card
+    set to 0. The first call wraps scene/prng.py's public draws (every
+    caller reaches them as prng.<name>) to count the calls on a CUDA key
+    with values, each of which must launch threefry once."""
+    if not _draws["wrapped"]:
+        for name in DRAWS:
+            def draw(key, *args, _fn=getattr(prng, name), **kwargs):
+                if prng._on_card(key):
+                    _draws["n"] += 1
+                return _fn(key, *args, **kwargs)
+            setattr(prng, name, draw)
+        _draws["wrapped"] = True
+    _lib.reset_launch_counts()
+    _draws["n"] = 0
+
+
+def launch_counts(keep_draws: bool = False) -> dict:
+    """The launches since reset_counts(). threefry's must equal the
+    draws on the card (one launch each: none ran the plain version);
+    then it is left out, unless `keep_draws`, so each path's "these
+    kernels and no other" checks read the kernels of the path."""
+    counts = _lib.launch_counts()
+    if counts[DRAW_KERNEL] != _draws["n"]:
+        raise AssertionError(f"{counts[DRAW_KERNEL]} threefry launches for "
+                             f"{_draws['n']} draws on the card")
+    if not keep_draws:
+        del counts[DRAW_KERNEL]
+    return counts
+
+
 def _launched_only(counts, kernels, n, label) -> None:
     """Raise unless exactly `kernels` launched, each `n` times."""
     uneven = [k for k in kernels if counts[k] != n]
@@ -1162,15 +1287,42 @@ def _launched_only(counts, kernels, n, label) -> None:
                              f"{kernels} x {n} only")
 
 
+class StepDraws:
+    """While active, keeps the threefry launches of every episode_step
+    call (the warm-up's by the name fleet/api.py calls, the episode's by
+    fleet/runner.py's)."""
+
+    MODULES = (api_module, runner_module)
+
+    def __enter__(self):
+        self.per_step = []
+        self.saved = [m.episode_step for m in self.MODULES]
+
+        def counted_step(*args, _fn=self.saved[0], **kwargs):
+            before = _lib.LAUNCHES[DRAW_KERNEL]
+            out = _fn(*args, **kwargs)
+            self.per_step.append(_lib.LAUNCHES[DRAW_KERNEL] - before)
+            return out
+
+        for m in self.MODULES:
+            m.episode_step = counted_step
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.MODULES, self.saved):
+            m.episode_step = fn
+
+
 def main_path_phase(spec: FleetRunSpec):
     """Drive run_fleet once at the main path's cell; return (result,
     launch counts of that run, the recorded shape-search calls, the
     recorded oracle-pass calls)."""
     torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launch_counts()
-    with SearchRecorder() as rec, OracleRecorder() as orec:
+    reset_counts()
+    with SearchRecorder() as rec, OracleRecorder() as orec, \
+            StepDraws() as draws:
         result = run_fleet(spec)
-    counts = _lib.launch_counts()
+    counts = launch_counts(keep_draws=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     chosen = torch.tensor(result.chosen)
@@ -1194,17 +1346,24 @@ def main_path_phase(spec: FleetRunSpec):
         raise AssertionError(f"main-path kernels not launched once per "
                              f"step: {uneven} ({counts})")
     stray = [k for k, v in counts.items()
-             if v and k not in MAIN_PATH_KERNELS]
+             if v and k not in MAIN_PATH_KERNELS + (DRAW_KERNEL,)]
     if stray:
         raise AssertionError(f"kernels off the main path launched on it: "
                              f"{stray}")
+    # every draw of the scene advance and the render noise one threefry
+    # launch (launch_counts: none ran the plain version)
+    if draws.per_step != [STEP_DRAWS] * (N_STEPS + 1):
+        raise AssertionError(f"threefry launches a step {draws.per_step}, "
+                             f"want {STEP_DRAWS} in each")
     t = result.timings
     print(f"main path: accuracy={result.accuracy:.6f} "
           f"frames_sent={list(result.frames_sent)} "
           f"compile_s={t['compile_s']:.3f} steady_s={t['steady_s']:.3f} "
           f"camera_steps_per_s={result.camera_steps_per_s:.2f} "
           f"peak_mem_gib={peak:.2f} launches={counts} "
-          f"(over {N_STEPS} steps + 1 warm-up step)", flush=True)
+          f"(over {N_STEPS} steps + 1 warm-up step; threefry "
+          f"{STEP_DRAWS} a step, {counts[DRAW_KERNEL] - sum(draws.per_step)}"
+          f" in set-up)", flush=True)
     return result, counts, rec.calls, orec.calls
 
 
@@ -1429,12 +1588,12 @@ def beyond_limits_phase(dev) -> None:
                          "spec": SceneSpec(**BIG_SCENE)})
     n_cells = OrientationGrid(**BIG_GRID).n_cells
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     with (SearchRecorder() as rec, OracleRecorder() as orec,
           PatchifyRecorder() as prec):
         result = run_fleet(spec)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     _launched_only(counts, MAIN_PATH_KERNELS, steps,
                    "beyond the old limits")
     chosen = torch.tensor(result.chosen)
@@ -1482,9 +1641,9 @@ def beyond_limits_phase(dev) -> None:
              grid_windows(DEFAULT_GRID, device=dev))
     okw = dict(task_id=wl.task_id, pair_idx=wl.pair_idx, n_zoom=3,
                cam_salt=rng[:, 0])
-    _lib.reset_launch_counts()
+    reset_counts()
     got = oracle_pass(*oargs, **okw)
-    if _lib.launch_counts()["oracle_pass"] != 1:
+    if launch_counts()["oracle_pass"] != 1:
         raise AssertionError("oracle_pass at 256 slots did not launch")
     oracle_phase([(oargs, okw, got)], 1, "[25 cells, M=256]")
 
@@ -1548,14 +1707,14 @@ def serve_phase(dev) -> dict:
 
     # serve --fleet 64 at its defaults, telemetry to a file, in a trace
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     with (tracing(str(trace_path)) as tracer,
           SearchRecorder() as rec):
         out, _, (result,) = _serve(**SERVE, fleet=N_CAMERAS,
                                    provider="tables",
                                    telemetry=str(events_path))
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     print(out.rstrip(), flush=True)
     label = f"serve --fleet {N_CAMERAS} [tables, 25 cells]"
     _launched_only(counts, SEARCH_KERNELS, steps, label)
@@ -1597,11 +1756,11 @@ def serve_phase(dev) -> dict:
         trace=NetworkTrace.fixed(24.0, 20.0, video.n_frames),
         acc_table=acc)
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     with tracing() as tracer, SearchRecorder() as rec:
         result = run_fleet(spec)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     label = f"run_fleet tables x{N_CAMERAS} [{grid.n_cells} cells]"
     _launched_only(counts, SEARCH_KERNELS, steps, label)
     paths[label] = counts
@@ -1636,13 +1795,13 @@ def serve_phase(dev) -> dict:
     det_events.unlink(missing_ok=True)
     det_steps = int(SERVE_DETECTOR["duration"] * SERVE_DETECTOR["fps"])
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     with (SearchRecorder() as rec, OracleRecorder() as orec,
           PatchifyRecorder() as prec):
         out, _, (result,) = _serve(**SERVE_DETECTOR,
                                    telemetry=str(det_events))
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     print(out.rstrip(), flush=True)
     label = (f"serve --fleet {SERVE_DETECTOR['fleet']} [detector, "
              f"shortlist {SHORTLIST_K}, distill]")
@@ -1691,12 +1850,12 @@ def distill_phase(spec: FleetRunSpec, frozen_steady_s: float, dev,
     steps = spec.n_steps + 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launch_counts()
+    reset_counts()
     with (SearchRecorder() as rec, OracleRecorder() as orec,
           PatchifyRecorder() as prec):
         result = run_fleet(spec)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _launched_only(counts, MAIN_PATH_KERNELS, steps, label)
     chosen = torch.tensor(result.chosen)
@@ -1890,7 +2049,7 @@ def unfused_phase(spec: FleetRunSpec, frozen_steady_s: float) -> dict:
             (f"fused, shortlist_k={c}", fused, MAIN_PATH_KERNELS)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _lib.reset_launch_counts()
+        reset_counts()
         with (SearchRecorder() as rec, OracleRecorder() as orec,
               PatchifyRecorder() as prec,
               CallRecorder(runner_module, "detections_obs",
@@ -1899,7 +2058,7 @@ def unfused_phase(spec: FleetRunSpec, frozen_steady_s: float) -> dict:
                            _keep_raw) as raw):
             result = run_fleet(s)
         torch.cuda.synchronize()
-        counts = _lib.launch_counts()
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         _launched_only(counts, kernels, steps, label)
         _check_detector_result(result, label)
@@ -2079,7 +2238,7 @@ def tables_phase(dev) -> dict:
         scene_seeds=[3] * N_CAMERAS, device=dev)
     statics = fleet_statics(grid, dev)
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     tables = materialize_scene_tables(cfg, wl, statics, st, provider)
     torch.cuda.synchronize()
@@ -2088,7 +2247,7 @@ def tables_phase(dev) -> dict:
         _, scene, _, _ = run_fleet_episode(cfg, wl, statics, st, provider)
         _, replay, _, _ = run_fleet_episode(cfg, wl, statics, st, tables)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     want = {"oracle_pass": 2 * N_STEPS, "shape_search": 3 * N_STEPS,
             "budget_walk": 3 * N_STEPS}
     if {k: counts[k] for k in want} != want or any(
@@ -2143,12 +2302,12 @@ def engine_phase(dev) -> dict:
     full = get_config("madeye-approx")
     wl = FleetRunSpec().workload_obj()
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     _, out = run_fleet_detector_controller(
         DEFAULT_GRID, wl, BudgetConfig(), n_cameras=ENGINE_CAMERAS,
         n_steps=ENGINE_STEPS, det_cfg=full, shortlist_k=SHORTLIST_K)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
     _launched_only(counts, MAIN_PATH_KERNELS, ENGINE_STEPS,
                    "run_fleet_detector_controller")
     res = run_fleet(FleetRunSpec(
@@ -2281,10 +2440,10 @@ def vit_flash_phase(spec: FleetRunSpec):
                                        impl=impl)
 
         torch.cuda.synchronize()
-        _lib.reset_launch_counts()
+        reset_counts()
         feats_f = backbone("flash")
         torch.cuda.synchronize()
-        counts = _lib.launch_counts()
+        counts = launch_counts()
         if counts["flash_attention"] != dc.n_layers or any(
                 v for k, v in counts.items() if k != "flash_attention"):
             raise AssertionError(f"ViT flash path launches {counts}, want "
@@ -2344,13 +2503,13 @@ def kernel_api_phase(dev, dets) -> dict:
         return keep, match
 
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     iou = box_iou(boxes, boxes)
     keep, match = nms_and_match(*crops)
     deltas = [frame_delta(cur[i], prev[i]) for i in range(N_CAMERAS)]
     y = rmsnorm(x, wt)
     torch.cuda.synchronize()
-    counts = _lib.launch_counts()
+    counts = launch_counts()
 
     want = {"box_iou": 1 + 16, "frame_delta": N_CAMERAS, "rmsnorm": 1}
     if {k: counts[k] for k in want} != want:
@@ -2421,10 +2580,10 @@ def counted(fn):
     """(fn(), the kernels it launched {name: n}): the counters set to 0
     just before, read just after."""
     torch.cuda.synchronize()
-    _lib.reset_launch_counts()
+    reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: v for k, v in _lib.launch_counts().items() if v}
+    return out, {k: v for k, v in launch_counts().items() if v}
 
 
 def expect_launches(got: dict, want: dict, label: str) -> None:
@@ -3900,11 +4059,11 @@ def launch_real(arch: str, shape: str, mesh, dry: dict, dev) -> dict:
     init_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launch_counts()
+    reset_counts()
     with implicit_replication(), FlopCounterMode(display=False) as fc:
         out = cell.fn(*args)
     torch.cuda.synchronize()
-    launches = _lib.launch_counts()
+    launches = launch_counts()
     flops = fc.get_total_flops()
     peak = torch.cuda.max_memory_allocated()
     if flops != dry["flops"]:
@@ -4027,6 +4186,7 @@ def main() -> int:
             raise AssertionError(f"no tensor-core instructions in {idle}")
 
     rows = kernel_phase(dev)
+    rows.update(threefry_phase(dev))
     rows.update(new_kernel_phase(dev))
     small_parity_phase()
     spec = FleetRunSpec(
@@ -4083,9 +4243,9 @@ def main() -> int:
         # launches: the detector main path's; the serving launcher's
         # paths (each counted from 0) and the search kernels' device
         # times on the tables episodes' last steps ride beside them
-        served_launches = {label: c[name]
+        served_launches = {label: c.get(name, 0)
                            for label, c in served["paths"].items()
-                           if c[name]}
+                           if c.get(name, 0)}
         tables_graph_ms = {label: rr[name]["graph_ms"]
                            for label, rr in served["rows"].items()
                            if name in rr}

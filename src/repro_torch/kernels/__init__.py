@@ -15,6 +15,8 @@ each with a plain PyTorch version beside its wrapper:
   box_iou          dense IoU matrix under NMS and box matching
   frame_delta      per-tile change mask + int8 residual of a frame
   rmsnorm          fused RMSNorm over rows
+  threefry         the threefry draws of scene/prng.py (keys, bits,
+                   uniform, randint, normal), once per draw
 
 `_lib` builds them with nvcc at the first launch and counts launches.
 """

@@ -32,7 +32,7 @@ import torch
 
 SOURCES = ("neighbor_score.cu", "shape_search.cu", "cell_rasterize.cu",
            "oracle_pass.cu", "crop_patchify.cu", "flash_attention.cu",
-           "box_iou.cu", "frame_delta.cu", "rmsnorm.cu")
+           "box_iou.cu", "frame_delta.cu", "rmsnorm.cu", "threefry.cu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,10 +40,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("neighbor_score", "shape_search", "budget_walk",
            "cell_rasterize", "oracle_pass", "crop_patchify",
-           "flash_attention", "box_iou", "frame_delta", "rmsnorm")
+           "flash_attention", "box_iou", "frame_delta", "rmsnorm",
+           "threefry")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _U = ctypes.c_longlong, ctypes.c_uint32
 _SIGNATURES = {
     # member_has, cent_x, cent_y, d_center, overlap, cell_x, cell_y, out,
     # B, N, stream
@@ -77,6 +79,10 @@ _SIGNATURES = {
     "frame_delta_launch": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
     # x, weight, out, T, D, eps, is_bf16, stream
     "rmsnorm_launch": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
+    # mode, key, key_row, key_word, data, data_row, data_word, out, rows,
+    # n, lo, hi, span, mult, minval, stream
+    "threefry_launch": [_I, _P, _L, _L, _P, _L, _U, _P, _L, _L, _F, _F, _U,
+                        _U, _L, _P],
 }
 
 _state: dict = {"lib": None, "path": None, "log": ""}

@@ -12,6 +12,12 @@ Keys, raw bits, `uniform` and `randint` are bit-equal to `jax.random`.
 polynomial as the reference, but its log1p can round differently in the
 last bit, so samples agree to about 1 ulp of erfinv rather than bit for
 bit.
+
+Each public function runs the plain PyTorch version below (`*_plain`)
+on CPU tensors, and on a CUDA tensor launches the threefry kernel once
+(kernels/threefry, csrc/threefry.cu), whose draws are bit-equal to the
+plain version's on the card. Under a FakeTensorMode tensors carry no
+values, and the plain version gives the shapes.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.threefry import ops as _kernel
 from repro_torch.numerics import fma_f32
 
 MASK32 = 0xFFFFFFFF
@@ -66,29 +73,28 @@ def _words(key: torch.Tensor, extra_dims: int):
     return k1.reshape(shape), k2.reshape(shape)
 
 
-def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """Mix an integer (or a tensor of integers broadcastable against the
-    key batch) into keys [..., 2]."""
-    key = _plain(key)
+def _on_card(key: torch.Tensor) -> bool:
+    """A CUDA key with values draws through the kernel."""
+    return (key.device.type == "cuda" and torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is None)
+
+
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
     k1, k2 = key[..., 0], key[..., 1]
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
     y0, y1 = threefry2x32(k1, k2, torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """keys [..., 2] -> [..., num, 2]."""
-    key = _plain(key)
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     k1, k2 = _words(key, 1)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """32 random bits per element: keys [..., 2] -> int64 [..., *shape]."""
+def random_bits_plain(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     shape = tuple(shape)
-    key = _plain(key)
     k1, k2 = _words(key, len(shape))
     n = math.prod(shape)
     lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
@@ -96,31 +102,82 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
-    """Float32 uniform in [minval, maxval); minval/maxval broadcast
-    against `shape` (scalars or tensors)."""
-    bits = random_bits(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    dev = key.device
+def _scale(floats: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """Floats in [0, 1) to [minval, maxval)."""
+    dev = floats.device
     lo = torch.as_tensor(minval, dtype=torch.float32, device=dev)
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=dev)
     # the reference's compiled program fuses this multiply-add
     return torch.maximum(lo, fma_f32(floats, hi - lo, lo))
 
 
-def randint(key: torch.Tensor, shape: tuple, minval: int,
-            maxval: int) -> torch.Tensor:
-    """Integers in [minval, maxval) (int64 values, int32 range), by the
-    reference's double-width modulus."""
-    keys = split(key, 2)
-    higher = random_bits(keys[..., 0, :], shape)
-    lower = random_bits(keys[..., 1, :], shape)
+def uniform_plain(key: torch.Tensor, shape: tuple, minval=0.0,
+                  maxval=1.0) -> torch.Tensor:
+    bits = random_bits_plain(key, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return _scale(fbits.view(torch.float32) - 1.0, minval, maxval)
+
+
+def randint_plain(key: torch.Tensor, shape: tuple, minval: int,
+                  maxval: int) -> torch.Tensor:
+    keys = split_plain(key, 2)
+    higher = random_bits_plain(keys[..., 0, :], shape)
+    lower = random_bits_plain(keys[..., 1, :], shape)
     span = max(int(maxval) - int(minval), 1) & MASK32
     mult = (2 ** 16 % span) ** 2 % span
     off = (((higher % span) * mult) & MASK32) + (lower % span)
     return int(minval) + (off & MASK32) % span
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """Mix an integer (or a tensor of integers broadcastable against the
+    key batch) into keys [..., 2]."""
+    key = _plain(key)
+    if not _on_card(key):
+        return fold_in_plain(key, data)
+    if not isinstance(data, int):
+        data = torch.as_tensor(data, dtype=torch.int64, device=key.device)
+    return _kernel.fold_in(key, data)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """keys [..., 2] -> [..., num, 2]."""
+    key = _plain(key)
+    if not _on_card(key):
+        return split_plain(key, num)
+    return _kernel.split(key, num)
+
+
+def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """32 random bits per element: keys [..., 2] -> int64 [..., *shape]."""
+    key = _plain(key)
+    if not _on_card(key):
+        return random_bits_plain(key, shape)
+    return _kernel.random_bits(key, shape)
+
+
+def uniform(key: torch.Tensor, shape: tuple, minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """Float32 uniform in [minval, maxval); minval/maxval broadcast
+    against `shape` (scalars or tensors). On the card, Python numbers
+    go to the kernel as arguments; tensor bounds scale the kernel's
+    [0, 1) floats here (the same bits)."""
+    key = _plain(key)
+    if not _on_card(key):
+        return uniform_plain(key, shape, minval, maxval)
+    if isinstance(minval, (int, float)) and isinstance(maxval, (int, float)):
+        return _kernel.uniform(key, shape, minval, maxval)
+    return _scale(_kernel.uniform(key, shape, 0.0, 1.0), minval, maxval)
+
+
+def randint(key: torch.Tensor, shape: tuple, minval: int,
+            maxval: int) -> torch.Tensor:
+    """Integers in [minval, maxval) (int64 values, int32 range), by the
+    reference's double-width modulus."""
+    key = _plain(key)
+    if not _on_card(key):
+        return randint_plain(key, shape, minval, maxval)
+    return _kernel.randint(key, shape, minval, maxval)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -155,7 +212,13 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
                        p * x)
 
 
+def normal_plain(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    return _SQRT2 * _erfinv(uniform_plain(key, shape, _NORMAL_LO, 1.0))
+
+
 def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """Float32 standard normal: sqrt(2) * erfinv(uniform(-1, 1))."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2 * _erfinv(u)
+    key = _plain(key)
+    if not _on_card(key):
+        return normal_plain(key, shape)
+    return _kernel.normal(key, shape, _NORMAL_LO, 1.0)
