@@ -14,8 +14,8 @@ produced:
   scene           the scene state after the step: mismatching elements
   oracle          acc_true of every window: mismatching elements
   detector        the detector's top-k scores on every shortlisted crop
-                  (crop_patchify's tokens through the ViT, neck and
-                  heads): worst absolute gap
+                  (crop_patchify's tokens through the configured
+                  model, its neck and heads): worst absolute gap
   tables          the observation tables the program made from its
                   detections, against the reference's tables from the
                   same detections: mismatching elements

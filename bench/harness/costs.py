@@ -1,6 +1,8 @@
 """Operations and bytes from shapes, and the H100's published peaks
 (NVIDIA's data sheet, SXM part, dense rates): what the per-layer
-metrics divide by."""
+metrics divide by. What depends on the model's architecture (a crop's
+FLOPs, the heads', the patch embed's sizes) comes from the cell's model
+module, `dims["model"]`."""
 from __future__ import annotations
 
 PEAK_TF32_FLOPS = 495e12        # dense TF32 on the tensor cores
@@ -13,34 +15,16 @@ def bound_s(n_bytes: float, n_ops: float) -> float:
     return max(n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_TF32_FLOPS)
 
 
-def detector_flops(s) -> float:
-    """Forward FLOPs of one crop (2 per multiply-add): the patch embed,
-    the ViT over 1 + (res/patch)^2 tokens, the neck and the heads."""
-    d, ff, f = s.d_model, s.d_ff, s.fpn_dim
-    gg = (s.img_res // s.patch) ** 2
-    t = gg + 1
-    embed = 2 * gg * s.patch * s.patch * 3 * d
-    layer = (2 * t * d * 3 * d + 2 * 2 * t * t * d + 2 * t * d * d
-             + 2 * 2 * t * d * ff)
-    neck = 2 * gg * d * f + 2 * gg * 9 * f * f
-    return embed + s.n_layers * layer + neck + head_flops(s)
-
-
-def head_flops(s) -> float:
-    """Forward FLOPs of the three 3x3 head convolutions on one crop."""
-    gg = (s.img_res // s.patch) ** 2
-    return 2 * gg * 9 * s.fpn_dim * (s.n_classes + 4 + 1)
-
-
 def step_model_flops(dims: dict) -> float:
-    """A step's model work: the detector forward over the F x K crops
-    and, with distillation on, the head update's forward and weight
-    gradient (two head forwards) over each camera's ring of pairs."""
-    s = dims["sizes"]
-    flops = dims["n_cameras"] * dims["shortlist_k"] * detector_flops(s)
+    """A step's model work: the configured model's forward over the F x K
+    crops and, with distillation on, the head update's forward and
+    weight gradient (two head forwards) over each camera's ring of
+    pairs."""
+    model, s = dims["model"], dims["sizes"]
+    flops = dims["n_cameras"] * dims["shortlist_k"] * model.crop_flops(s)
     if dims["distill"] is not None:
         flops += (dims["n_cameras"] * dims["distill"]["buffer"]
-                  * 2 * head_flops(s))
+                  * 2 * model.head_flops(s))
     return flops
 
 
@@ -48,12 +32,12 @@ def crop_patchify_cost(dims: dict) -> tuple[float, float]:
     """(bytes, operations) of one crop_patchify launch: the object
     strips and colours, the windows, the background plane, the weights
     read once and the tokens written once; the patch embed's
-    multiply-adds (operations counted once, as float32 products)."""
-    s = dims["sizes"]
+    multiply-adds (operations counted once, as float32 products), with
+    the model's (patch, res, width)."""
+    patch, res, d = dims["model"].patch_embed(dims["sizes"])
     f, m, k = dims["n_cameras"], dims["n_objects"], dims["shortlist_k"]
-    res, d = s.img_res, s.d_model
-    depth = s.patch * s.patch * 3
-    gg = (res // s.patch) ** 2
+    depth = patch * patch * 3
+    gg = (res // patch) ** 2
     n_bytes = 4 * (4 * f * m + 3 * f * m + f * k * 4 + f * res * res * 3
                    + depth * d + d + f * k * gg * d)
     return n_bytes, 2.0 * f * k * gg * depth * d

@@ -1,5 +1,6 @@
-"""The system under test: the port's detector fleet, prepared from a cell
-and driven step by step through a timed window.
+"""The system under test: the port's fleet with the cell's configured
+model, prepared from a cell and driven step by step through a timed
+window.
 
 Set-up is `repro_torch.fleet.api.prepare_fleet_run` and one untimed
 warm-up step on a fresh state (as `run_fleet` takes one). The window
@@ -44,28 +45,23 @@ class Run:
     """The program prepared for one cell and seed on `device`."""
 
     def __init__(self, cell, weights, seed: int, seconds: float, device):
-        from repro_torch.configs import DetectorConfig
         from repro_torch.fleet.api import FleetRunSpec, prepare_fleet_run
         from repro_torch.learn.spec import DistillSpec
         from repro_torch.scene.scene import SceneSpec
 
         t = cell.traffic
         s = cell.sizes
-        det_cfg = DetectorConfig(
-            name=s.name, img_res=s.img_res, patch=s.patch,
-            n_layers=s.n_layers, d_model=s.d_model, n_heads=s.n_heads,
-            d_ff=s.d_ff, n_classes=s.n_classes, max_boxes=s.max_boxes,
-            fpn_dim=s.fpn_dim)
+        provider, model_kwargs = cell.model.program(s)
         n_steps = int(STEPS_PER_SECOND_MAX * seconds) + SPARE_STEPS
         spec = FleetRunSpec(
-            provider="detector", n_cameras=t["n_cameras"], n_steps=n_steps,
+            provider=provider, n_cameras=t["n_cameras"], n_steps=n_steps,
             seed=seed, workload=tuple(tuple(q) for q in t["workload"]),
             budget={"fps": t["fps"]}, grid=dict(t["grid"]),
             shortlist_k=t["shortlist_k"],
             distill=(None if cell.distill is None
                      else DistillSpec(**cell.distill)),
             provider_kwargs={
-                "det_cfg": det_cfg, "det_params": weights,
+                **model_kwargs, "det_params": weights,
                 "thresh": s.score_thresh, "noise": t["render_noise"],
                 "mbps": t["network"]["mbps"],
                 "rtt_ms": t["network"]["rtt_ms"],

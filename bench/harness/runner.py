@@ -3,13 +3,12 @@ profiled stretch and the op count, then the comparison; -> the result
 line's object and the comparison's lines for standard error."""
 from __future__ import annotations
 
-import importlib.util
 import subprocess
 import time
 
 import torch
 
-from bench.harness.cell import Cell
+from bench.harness.cell import Cell, load_file
 from bench.harness.check import compare, judge
 from bench.harness.program import Run
 from bench.harness.trace import breakdown, busy_idle, count_ops, profile_steps
@@ -21,12 +20,8 @@ from bench.reference.grid import OrientationGrid
 def read_metric(root, name: str, ctx: dict):
     """The reader `bench/metrics/<name>.py` applied to ctx (None: nothing
     to read)."""
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_').replace('-', '_')}",
-        root / "bench" / "metrics" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(ctx)
+    return load_file(root / "bench" / "metrics" / f"{name}.py",
+                     "metric").read(ctx)
 
 
 def dims(cell: Cell) -> dict:
@@ -34,8 +29,8 @@ def dims(cell: Cell) -> dict:
     t = cell.traffic
     grid = OrientationGrid(**t["grid"])
     pairs = {(m, o) for m, o, _ in t["workload"]}
-    return {"sizes": cell.sizes, "n_cameras": t["n_cameras"],
-            "shortlist_k": t["shortlist_k"],
+    return {"model": cell.model, "sizes": cell.sizes,
+            "n_cameras": t["n_cameras"], "shortlist_k": t["shortlist_k"],
             "n_objects": t["scene"]["max_people"] + t["scene"]["max_cars"],
             "n_pairs": len(pairs), "n_queries": len(t["workload"]),
             "n_windows": grid.n_orientations, "distill": cell.distill}
@@ -62,7 +57,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     # where set-up's seconds go: imports, the device's context with the
     # weights, the fleet prepared, the warm-up step
     marks = [("imports", time.perf_counter())]
-    weights = make_weights(cell.sizes, seed, dev)
+    weights = make_weights(cell.model.leaves(cell.sizes), seed, dev)
     marks.append(("context_and_weights", time.perf_counter()))
     run = Run(cell, weights, seed, seconds, dev)
     marks.append(("prepare", time.perf_counter()))
@@ -88,9 +83,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     # the comparison, on weights made again from the seed
-    ref_weights = make_weights(cell.sizes, seed, dev)
-    world = ref.build_world(cell.sizes, cell.traffic, seed, dev,
-                            cell.distill)
+    ref_weights = make_weights(cell.model.leaves(cell.sizes), seed, dev)
+    world = ref.build_world(cell.model, cell.sizes, cell.traffic, seed,
+                            dev, cell.distill)
     worst, per_step = compare(run, world, ref_weights, w.sampled, control)
     run.free()
     limits = cell.limits["limits"]

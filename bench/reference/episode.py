@@ -1,5 +1,5 @@
-"""One controller step of the madeye-approx fleet, worked out again in
-plain PyTorch, stage by stage, from a cell's files and its seed.
+"""One controller step of the detector fleet, worked out again in plain
+PyTorch, stage by stage, from a cell's files and its seed.
 
 `build_world` derives everything a run starts from: the scene layout and
 per-camera parameters, the teacher constants, the windows, the
@@ -9,8 +9,10 @@ functions each take a step's inputs and return what that stage gives:
 
   advance     the scene advanced one controller step
   oracle      the oracle's grade of every window (acc_true [F, N, Z])
-  detect      shortlist -> crops -> patch tokens -> detector -> the
-              detections and the observation tables they make
+  detect      shortlist -> the configured model's reference from the
+              shortlisted windows and the noise (its module's
+              `reference_detect`) -> the detections and the
+              observation tables they make
   tables      detections -> observation tables
   control     fleet_step on given observations
   learn       pair harvest from the sent crops + the head-only update
@@ -25,12 +27,7 @@ import torch
 from torch.func import vmap
 
 from bench.reference import ewma
-from bench.reference.detector import (
-    detections_from_feats,
-    detector_forward_tokens,
-    detector_neck_feats_tokens,
-)
-from bench.reference.crop_patchify import crop_patchify
+from bench.reference.detector import detections_from_feats
 from bench.reference.fleet_state import (
     FleetConfig,
     FleetState,
@@ -67,7 +64,8 @@ from bench.reference.tradeoff import BudgetConfig
 
 class World(NamedTuple):
     """What a run of one cell starts from (tensors on one device)."""
-    det_cfg: Any
+    model: Any                  # the cell's model module
+    det_cfg: Any                # its sizes object
     spec: SceneSpec
     params: Any                 # SceneFleetParams
     teach: Any                  # TeacherArrays
@@ -97,11 +95,11 @@ def _divisor_at_most(n: int, cap: int) -> int:
     return chunk
 
 
-def build_world(det_cfg, traffic: dict, seed: int, device,
+def build_world(model, det_cfg, traffic: dict, seed: int, device,
                 distill: dict | None) -> World:
-    """The run's starting point from the configuration `det_cfg` (an
-    object with the detector's sizes and `score_thresh`), the traffic
-    mix and the seed."""
+    """The run's starting point from the model module, its sizes object
+    `det_cfg` (with at least `img_res`, `max_boxes` and `score_thresh`),
+    the traffic mix and the seed."""
     grid = (OrientationGrid(**traffic["grid"]) if traffic.get("grid")
             else DEFAULT_GRID)
     workload = Workload(tuple(Query(*q) for q in traffic["workload"]))
@@ -113,7 +111,7 @@ def build_world(det_cfg, traffic: dict, seed: int, device,
     windows = grid_windows(grid, cfg.zoom_levels, device=device)
     thresh = det_cfg.score_thresh
     return World(
-        det_cfg=det_cfg, spec=spec, params=params,
+        model=model, det_cfg=det_cfg, spec=spec, params=params,
         teach=teacher_arrays(wl.pairs, device), windows=windows, cfg=cfg,
         statics=fleet_statics(grid, device), wl=wl,
         state0=init_fleet(grid, f, 6, rng=rng),
@@ -135,7 +133,8 @@ def build_world(det_cfg, traffic: dict, seed: int, device,
 
 def initial_learn(world: World, weights):
     return init_learn(world.distill, world.det_cfg, weights,
-                      world.state0.step_idx.shape[0], world.shortlist_k)
+                      world.state0.step_idx.shape[0], world.shortlist_k,
+                      world.model.neck_shape(world.det_cfg))
 
 
 def advance(world: World, state: FleetState, sc):
@@ -193,32 +192,25 @@ def _scatter(dets, widx: torch.Tensor, c: int):
 
 def detect(world: World, weights, state: FleetState, sc, acc_true,
            heads=None):
-    """Shortlist -> crops -> tokens -> detector -> observation tables.
-    `heads` [F, ...] (distillation on) are each camera's own heads over
-    the shared backbone's post-neck features. -> (SceneObs tables on
-    the whole [F, N, Z] window axis, shortlist [F, K], post-neck
-    features [F, K, g, g, fpn] or None)."""
+    """Shortlist -> the model's reference detections -> observation
+    tables. `heads` [F, ...] (distillation on) are each camera's own
+    heads over the shared backbone's post-neck features, which the
+    model then gives in place of its detections. -> (SceneObs tables
+    on the whole [F, N, Z] window axis, shortlist [F, K], the
+    detections on the [F, C] window axis)."""
     cfg_d = world.det_cfg
     c = world.windows.shape[0]
     frame = state.step_idx * world.stride
     noise_img = render_noise(state.rng, frame, cfg_d.img_res) * world.noise
     widx = shortlist_windows(world.cfg, state, world.statics.neighbor8,
                              world.shortlist_k)
-    tokens = crop_patchify(
-        sc.pos, sc.size, world.kinds, sc.oid, world.windows[widx],
-        weights["backbone"]["vit"]["patch_embed"], patch=cfg_d.patch,
-        res=cfg_d.img_res, min_visible=world.spec.min_visible,
-        noise=noise_img, block_k=world.block_k)
-    f, k = tokens.shape[:2]
-    flat = tokens.reshape((f * k,) + tokens.shape[2:])
-    if heads is None:
-        dets = detector_forward_tokens(weights, cfg_d, flat)
-        dets = type(dets)(*(x.reshape((f, k) + x.shape[1:]) for x in dets))
-    else:
-        feats = detector_neck_feats_tokens(weights, cfg_d, flat)
-        feats = feats.reshape((f, k) + feats.shape[1:])
+    dets = world.model.reference_detect(
+        cfg_d, weights, sc, world.kinds, world.windows[widx], noise_img,
+        min_visible=world.spec.min_visible, block_k=world.block_k,
+        feats_only=heads is not None)
+    if heads is not None:
         dets = vmap(lambda h, x: detections_from_feats(cfg_d, h, x))(
-            heads, feats)
+            heads, dets)
     dets = _scatter(dets, widx, c)
     return tables(world, dets, acc_true), widx, dets
 

@@ -58,15 +58,14 @@ class LearnState(NamedTuple):
 
 
 def init_learn(dspec: DistillSpec, det_cfg, det_params, n_cameras: int,
-               shortlist_k: int) -> LearnState:
+               shortlist_k: int, payload: tuple) -> LearnState:
     """Copy the heads per camera (fresh tensors) and size the ring and
-    staging buffers."""
+    staging buffers for one crop's post-neck map `payload` (rows, cols,
+    width)."""
     f = n_cameras
-    g = det_cfg.img_res // det_cfg.patch
     params = tree_map(lambda p: p[None].expand((f,) + p.shape).clone(),
                       det_params["heads"])
     opt = optim.adamw_init(params, tree_map(lambda _: True, params))
-    payload = (g, g, det_cfg.fpn_dim)
     dev = tree_leaves(params)[0].device
     return LearnState(
         params=params, opt=opt,

@@ -3,8 +3,9 @@
     python3 bench/run.py --workload approx-f64-k18 --seed 7 --seconds 35 \\
         --trace 0
 
-Finds the cell in BENCHMARK.json, its configuration, traffic mix and
-limits under bench/, makes the detector's weights on the card from the
+Finds the cell in BENCHMARK.json, its configuration, the model module
+the configuration names (bench/models/<model>.py), its traffic mix and
+limits under bench/, makes the model's weights on the card from the
 seed, prepares the port's fleet (repro_torch.fleet.api), warms it up,
 runs the timed window, with --trace 1 a profiled stretch after it, then
 holds sampled steps against the plain reference (bench/reference). The

@@ -22,10 +22,13 @@ SMOKE_SEED = 2 ** 40 + 7
 
 
 def write_root(root: Path, n_cameras: int = 3, shortlist_k: int = 6):
-    """A root with BENCHMARK.json and bench/ files for the smoke cells
-    `smoke-approx` and `smoke-distill`."""
+    """A root with BENCHMARK.json and bench/ files (the committed metric
+    readers and model modules) for the smoke cells `smoke-approx` and
+    `smoke-distill`."""
     bench = root / "bench"
-    shutil.copytree(ROOT / "bench" / "metrics", bench / "metrics")
+    for d in ("metrics", "models"):
+        shutil.copytree(ROOT / "bench" / d, bench / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for d in ("configs", "traffic", "limits"):
         (bench / d).mkdir(parents=True, exist_ok=True)
     real = json.loads((ROOT / "BENCHMARK.json").read_text())

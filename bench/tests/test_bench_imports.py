@@ -44,6 +44,32 @@ def test_reference_loads_nothing_of_the_port():
     assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
 
+def test_model_reference_side_loads_nothing_of_the_port():
+    # the ViT's module loaded, and its reference run once on one camera's
+    # three shortlisted windows at the committed sizes
+    tops = _tops(f"""
+import json
+from pathlib import Path
+import torch
+from bench.harness.cell import load_model
+from bench.harness.weights import make_weights
+from bench.reference import episode as ref
+root = Path({str(ROOT)!r})
+m = load_model(root, "vit_detector")
+s = m.sizes(json.loads((root / "bench/configs/madeye-approx.json")
+                       .read_text()))
+t = json.loads((root / "bench/traffic/f64-k18.json").read_text())
+t.update(n_cameras=1, shortlist_k=3)
+w = ref.build_world(m, s, t, 5, "cpu", None)
+acc = ref.oracle(w, w.state0, w.scene0)
+with torch.no_grad():
+    ref.detect(w, make_weights(m.leaves(s), 5, "cpu"), w.state0, w.scene0,
+               acc)
+m.crop_flops(s), m.patch_embed(s)
+""")
+    assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
+
+
 def test_harness_loads_no_jax():
     tops = _tops("import bench.harness.runner\n"
                  "import repro_torch.fleet.api\n"
