@@ -11,7 +11,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
   3. hold each kernel against its plain PyTorch version on the card —
      neighbor_score (the kernel API the shape search used to launch),
      cell_rasterize (the kernel API the oracle pass used to launch) and
-     crop_patchify at the main path's shapes, then
+     crop_patchify at the main path's shapes and at the swinb-f32-k18
+     cell's (Swin-B's patch 4 and width 128, 32 x 18 crops), then
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
      with q_offset, bf16, and 192- and 256-wide heads), box_iou (bit-equal),
      frame_delta and rmsnorm at full-size shapes, threefry (bit-equal)
@@ -467,6 +468,10 @@ TENSOR_CORE_KERNELS = ("crop_patchify", "flash_attention")
 # 80 dims, MHA), batch 2 at a 4096-token context
 STABLELM_ATTN = dict(b=2, s=4096, h=32, d=80)
 N_BOX_CAMERAS = 16      # box_iou: one step's detections of 16 cameras
+# the benchmark's swinb-f32-k18 cell (bench/configs/madeye-swin-b.json,
+# bench/traffic/f32-k18.json): Swin-B's patch 4 and width 128 over 32
+# cameras x SHORTLIST_K windows of 224 px, a 22-slot scene
+SWIN_CAMERAS, SWIN_PATCH, SWIN_D = 32, 4, 128
 # past the kernels' old limits: the 7.5-degree grid (200 cells, four-word
 # cell sets), a 40-slot scene (two ownership words), 16 cameras
 BIG_GRID = {"pan_step": 7.5, "tilt_step": 7.5}
@@ -782,8 +787,24 @@ def main_path_inputs(dev):
     cr_args = (*strips, draw, a0, a1, windows)
 
     cfg = get_config("madeye-approx")
-    res, patch, d = cfg.img_res, cfg.patch, cfg.d_model
-    widx = torch.argsort(rand(N_CAMERAS, c), dim=-1)[:, :SHORTLIST_K]
+    cp_args, cp_kw = patchify_args(dev, gen, spec, sc, rng, strips,
+                                   windows, cfg.img_res, cfg.patch,
+                                   cfg.d_model)
+    return (ns_args, (cr_args, dict(min_visible=spec.min_visible,
+                                    n_moment=N_CHANNELS // 2)),
+            (cp_args, cp_kw))
+
+
+def patchify_args(dev, gen, spec, sc, rng, strips, windows, res: int,
+                  patch: int, d: int):
+    """crop_patchify's arguments and keywords: SHORTLIST_K windows of a
+    random order a camera, the scene `sc` (its object `strips`), the
+    background with noise, a He-scaled patch embed of width d (drawn
+    from `gen`)."""
+    f = strips[0].shape[0]
+    widx = torch.argsort(torch.rand((f, windows.shape[0]),
+                                    generator=gen).to(dev),
+                         dim=-1)[:, :SHORTLIST_K]
     wins = windows[widx].contiguous()                       # [F, K, 4]
     kinds = torch.as_tensor(kind_mask(spec), device=dev)
     colors = object_colors(kinds, sc.oid).contiguous()
@@ -793,11 +814,24 @@ def main_path_inputs(dev):
     wflat = (math.sqrt(2.0 / depth)
              * torch.randn((depth, d), generator=gen)).to(dev)
     bias = (0.01 * torch.randn(d, generator=gen)).to(dev)
-    cp_args = (*strips, colors, wins, bgn, wflat, bias)
-    cp_kw = dict(res=res, patch=patch, min_visible=spec.min_visible)
-    return (ns_args, (cr_args, dict(min_visible=spec.min_visible,
-                                    n_moment=N_CHANNELS // 2)),
-            (cp_args, cp_kw))
+    return ((*strips, colors, wins, bgn, wflat, bias),
+            dict(res=res, patch=patch, min_visible=spec.min_visible))
+
+
+def swin_patchify_inputs(dev):
+    """crop_patchify's arguments at the swinb-f32-k18 cell's shapes:
+    SWIN_CAMERAS cameras' scene advanced a few frames (seeded)."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    spec = SceneSpec()
+    params, rng = scene_fleet_params(spec, SWIN_CAMERAS, device=dev)
+    sc = advance_scene(spec, params, rng, init_scene(spec, params, rng),
+                       2, 4)
+    strips = [x.contiguous() for x in (sc.pos[..., 0], sc.pos[..., 1],
+                                       sc.size[..., 0], sc.size[..., 1])]
+    return patchify_args(dev, gen, spec, sc, rng, strips,
+                         grid_windows(DEFAULT_GRID, device=dev),
+                         get_config("madeye-approx").img_res, SWIN_PATCH,
+                         SWIN_D)
 
 
 def kernel_phase(dev) -> dict:
@@ -858,6 +892,31 @@ def kernel_phase(dev) -> dict:
         bound=patchify_bound(cp_args, cp_kw))
     for name, r in rows.items():
         print_row(name, r)
+
+    # crop_patchify at the swinb-f32-k18 cell's shape: 3,136 tokens a
+    # crop over 48-deep patches (one K chunk, ragged row tiles), the same
+    # product and tolerance as at patch 16; one launch and no other
+    sw_args, sw_kw = swin_patchify_inputs(dev)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    got = (crop_patchify_batch(*sw_args, **sw_kw),)
+    launched = {k: v for k, v in _lib.launch_counts().items() if v}
+    if launched != {"crop_patchify": 1}:
+        raise AssertionError(f"crop_patchify [swin-b]: launched {launched}")
+    want = (crop_patchify_plain(*sw_args, **sw_kw),)
+    torch.cuda.synchronize()
+    check_close("crop_patchify [swin-b]", got, want, atol=1e-4)
+    row = dict(
+        max_abs_err=max_err(got, want), launches=1,
+        ms=cuda_ms(lambda: crop_patchify_batch(*sw_args, **sw_kw), 10),
+        plain_ms=cuda_ms(lambda: crop_patchify_plain(*sw_args, **sw_kw),
+                         3),
+        bound=patchify_bound(sw_args, sw_kw))
+    del got, want
+    f, k = sw_args[5].shape[:2]
+    print_row(f"crop_patchify [swinb-f32-k18: {f} x {k} crops, patch "
+              f"{SWIN_PATCH}, D {SWIN_D}]", row)
+    rows["crop_patchify"]["swin_b"] = row
     return rows
 
 
@@ -4267,6 +4326,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
             **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {}),
+            # phase 3: crop_patchify at the swinb-f32-k18 cell's shape
+            **({"swin_b": {key: r["swin_b"][key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms")}
+                | {"bound_ms": r["swin_b"]["bound"][0],
+                   "bound_by": r["swin_b"]["bound"][1]}}
+               if "swin_b" in r else {}),
             **({"serve_launches": served_launches}
                if served_launches else {}),
             **({"tables_graph_ms": tables_graph_ms}

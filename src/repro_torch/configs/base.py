@@ -113,17 +113,39 @@ class DiffusionConfig:
 
 @dataclass(frozen=True)
 class DetectorConfig:
-    """Light ViT backbone + anchor-free detection heads; float32."""
+    """A backbone + anchor-free detection heads; float32. The backbone
+    is a light ViT (n_layers, d_model, n_heads, d_ff) unless `swin`
+    holds a Swin VisionConfig (its img_res and patch are the detector's;
+    the neck reads its last two stages)."""
     name: str
     img_res: int
     patch: int
-    n_layers: int
-    d_model: int
-    n_heads: int
-    d_ff: int
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    d_ff: int = 0
     n_classes: int = 2               # {person, car}
     max_boxes: int = 32              # static box budget per frame
     fpn_dim: int = 128
+    swin: Optional[VisionConfig] = None
+
+    def __post_init__(self):
+        s = self.swin
+        if s is None:
+            if min(self.n_layers, self.d_model, self.n_heads,
+                   self.d_ff) <= 0:
+                raise ValueError(f"{self.name}: a ViT backbone needs "
+                                 f"n_layers, d_model, n_heads and d_ff")
+            return
+        if not (s.swin and len(s.dims) == len(s.depths) >= 2
+                and (s.img_res, s.patch) == (self.img_res, self.patch)
+                and s.dtype == torch.float32
+                and self.n_layers == self.d_model == self.n_heads
+                == self.d_ff == 0):
+            raise ValueError(
+                f"{self.name}: a Swin backbone is a float32 Swin "
+                f"VisionConfig of >= 2 stages at the detector's img_res "
+                f"and patch, with no ViT widths beside it; got {s}")
 
     @property
     def family(self) -> str:

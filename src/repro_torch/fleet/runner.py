@@ -91,6 +91,7 @@ from repro_torch.models.detector import (
     detector_forward_tokens,
     detector_init,
     detector_neck_feats_tokens,
+    patch_embed_params,
     params_from_numpy,
 )
 from repro_torch.obs.metrics import step_metrics
@@ -392,7 +393,7 @@ class DetectorProvider:
             wins = p.windows                                # shared [C, 4]
         tokens = crop_patchify(
             sc.pos, sc.size, kinds, sc.oid, wins,
-            dp["backbone"]["vit"]["patch_embed"],
+            patch_embed_params(dp, self.det_cfg),
             patch=self.det_cfg.patch, res=self.det_cfg.img_res,
             min_visible=p.spec.min_visible, noise=noise_img,
             block_k=_auto_chunk(k, self.chunk))             # [F, K, gg, D]
@@ -688,8 +689,8 @@ def make_scene_provider(grid, workload: Workload, cfg: FleetConfig, *,
 
 
 def save_detector_params(path: str, params) -> str:
-    """Write a detector params tree (nested dicts of tensors or arrays)
-    to .npz with '/'-joined keys — the checkpoint format both packages
+    """Write a detector params tree (nested dicts, and Swin's lists, of
+    tensors or arrays) to .npz with '/'-joined keys — the checkpoint format both packages
     load. Returns the path written."""
     flat = {}
 
@@ -702,6 +703,9 @@ def save_detector_params(path: str, params) -> str:
                         f"key {k!r} under {prefix or '<root>'!r} would "
                         f"not round-trip through '/'-joined npz names")
                 walk(tree[k], f"{prefix}/{k}" if prefix else k)
+        elif isinstance(tree, list) and prefix:
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}")
         elif not prefix:
             raise TypeError("detector params must be a dict tree, got "
                             f"{type(tree).__name__}")

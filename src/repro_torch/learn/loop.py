@@ -55,15 +55,15 @@ class LearnState(NamedTuple):
     staged_widx: torch.Tensor   # [F, K] int64 window ids of the payload
 
 
-def trainable_mask(dspec: DistillSpec, trainable) -> Any:
+def trainable_mask(dspec: DistillSpec, det_cfg, trainable) -> Any:
     """Optimizer mask over the trainable tree. Head-only: everything
     (the subtree IS the heads). Full: everything except the shared patch
     embedding — the staged tokens were produced by it, so its gradients
     are structurally zero and Adam/decay must not drift it."""
     m = tree_map(lambda _: True, trainable)
     if not dspec.head_only:
-        m["backbone"]["vit"]["patch_embed"] = tree_map(
-            lambda _: False, trainable["backbone"]["vit"]["patch_embed"])
+        pe = det.patch_embed_params(m, det_cfg)
+        pe.update(tree_map(lambda _: False, pe))
     return m
 
 
@@ -72,12 +72,18 @@ def init_learn(dspec: DistillSpec, det_cfg, det_params, n_cameras: int,
     """Copy the trainable subtree per camera (fresh tensors: the shared
     params are never written through) and size the ring and staging
     buffers."""
+    backbone = det.config_backbone(det_cfg)
+    if not dspec.head_only and backbone != "vit":
+        raise NotImplementedError(
+            f"full-parameter distillation (DistillSpec(head_only=False)) "
+            f"runs with the ViT backbone only, not {backbone!r}: use "
+            f"head_only=True")
     f = n_cameras
-    g = det_cfg.img_res // det_cfg.patch
+    g = det.neck_grid(det_cfg)
     sub = det_params["heads"] if dspec.head_only else det_params
     params = tree_map(lambda p: p[None].expand((f,) + p.shape).clone(),
                       sub)
-    mask = trainable_mask(dspec, params)
+    mask = trainable_mask(dspec, det_cfg, params)
     if dspec.optimizer == "adamw":
         opt = optim.adamw_init(params, mask)
     else:
@@ -162,7 +168,7 @@ def distill_update(dspec: DistillSpec, det_cfg, lc: LearnState
         return losses.sum(), losses
 
     grads, (_, losses) = grad_and_value(total, has_aux=True)(lc.params)
-    mask = trainable_mask(dspec, lc.params)
+    mask = trainable_mask(dspec, det_cfg, lc.params)
     if dspec.grad_clip is not None:
         grads = _per_camera_clip(grads, mask, dspec.grad_clip)
     lr_t = lr_at(dspec, lc.opt.step)

@@ -1,10 +1,18 @@
-"""MadEye approximation model: ViT backbone + FPN-lite neck + anchor-free
+"""MadEye approximation model: a backbone + FPN-lite neck + anchor-free
 center/box/class heads (paper §3.1), used only to rank orientations.
 
 Parameters are nested dictionaries in the reference layout
 (``{"backbone": {"vit", "neck"}, "heads": {"cls", "box", "obj"}}``),
 so `params_from_numpy` carries the JAX package's weights across and
 `fleet.runner.load_detector_params` reads its `.npz` checkpoints.
+
+The backbone is the config's: a ViT over the patch tokens (one map at
+stride `patch`, the neck a 1x1 lateral and a 3x3 smooth), or Swin
+(``{"backbone": {"swin", "neck"}}``: models/swin.py's stages over the
+patch tokens, stages and blocks in lists; the neck joins the last two
+stages' normed maps, the last upsampled 2x, into the map of the one
+before it). Both neck maps are [g, g, fpn_dim], so the
+heads, the decode and head-only distillation are shared.
 
 Output per crop: boxes [max_boxes, 4] cxcywh in [0, 1], scores
 [max_boxes], class_probs [max_boxes, n_classes], top-`max_boxes` by
@@ -18,8 +26,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import DetectorConfig
-from repro_torch.models import vit
-from repro_torch.models.layers import Params, conv2d, conv_init, gelu
+from repro_torch.models import swin, vit
+from repro_torch.models.layers import (
+    Params,
+    conv2d,
+    conv_init,
+    gelu,
+    grid_side,
+    layernorm,
+    layernorm_init,
+)
+from repro_torch.obs.trace import span
 
 
 class Detections(NamedTuple):
@@ -31,8 +48,12 @@ class Detections(NamedTuple):
 def detector_init(gen: torch.Generator, cfg: DetectorConfig,
                   device=None) -> Params:
     """Fresh weights from a torch.Generator (truncated normals: He for
-    convs, LeCun for linears, std 0.02 for the CLS/position tokens)."""
+    convs, LeCun for linears, std 0.02 for the CLS/position tokens and
+    Swin's relative-bias tables)."""
     f = cfg.fpn_dim
+    if config_backbone(cfg) == "swin":
+        return {"backbone": _swin_backbone_init(gen, cfg, device),
+                "heads": _heads_init(gen, cfg, device)}
     return {
         "backbone": {
             "vit": vit.vit_init(gen, img_res=cfg.img_res, patch=cfg.patch,
@@ -45,20 +66,76 @@ def detector_init(gen: torch.Generator, cfg: DetectorConfig,
                 "smooth": conv_init(gen, 3, 3, f, f, device=device),
             },
         },
-        "heads": {
-            "cls": conv_init(gen, 3, 3, f, cfg.n_classes, device=device),
+        "heads": _heads_init(gen, cfg, device),
+    }
+
+
+def _heads_init(gen, cfg: DetectorConfig, device) -> Params:
+    f = cfg.fpn_dim
+    return {"cls": conv_init(gen, 3, 3, f, cfg.n_classes, device=device),
             "box": conv_init(gen, 3, 3, f, 4, device=device),
-            "obj": conv_init(gen, 3, 3, f, 1, device=device),
+            "obj": conv_init(gen, 3, 3, f, 1, device=device)}
+
+
+def _swin_backbone_init(gen, cfg: DetectorConfig, device) -> Params:
+    """{"swin": patch embed, patch norm, models/swin.py's stages, norm3 /
+    norm4 on the last two stages' maps; "neck": lateral3 / lateral4
+    (1x1 onto fpn_dim) and smooth (3x3)}."""
+    sc, f = cfg.swin, cfg.fpn_dim
+    dims = sc.dims
+    return {
+        "swin": {
+            "stages": swin.swin_stages_init(gen, sc, device=device),
+            "patch_embed": conv_init(gen, cfg.patch, cfg.patch, 3, dims[0],
+                                     device=device),
+            "patch_norm": layernorm_init(dims[0], device=device),
+            "norm3": layernorm_init(dims[-2], device=device),
+            "norm4": layernorm_init(dims[-1], device=device),
+        },
+        "neck": {
+            "lateral3": conv_init(gen, 1, 1, dims[-2], f, device=device),
+            "lateral4": conv_init(gen, 1, 1, dims[-1], f, device=device),
+            "smooth": conv_init(gen, 3, 3, f, f, device=device),
         },
     }
+
+
+def config_backbone(cfg) -> str:
+    """The backbone cfg names: "swin" where cfg.swin holds a Swin
+    config, else "vit" (also for a config without the field: the JAX
+    package's DetectorConfig, which the tests hand the port)."""
+    return "vit" if getattr(cfg, "swin", None) is None else "swin"
+
+
+def patch_embed_params(params: Params, cfg: DetectorConfig) -> Params:
+    """The conv patch embed ({"w": [p, p, 3, D], "b": [D]}) that
+    crop_patchify applies, whichever backbone holds it."""
+    return params["backbone"][config_backbone(cfg)]["patch_embed"]
+
+
+def neck_grid(cfg: DetectorConfig) -> int:
+    """Side of the post-neck map: img_res / patch for the ViT; for Swin
+    the map of the second-to-last stage, one merge (2x) per stage
+    before it."""
+    g = cfg.img_res // cfg.patch
+    if config_backbone(cfg) == "swin":
+        g //= 2 ** (len(cfg.swin.depths) - 2)
+    return g
 
 
 def params_from_numpy(tree, device=None) -> Params:
     """Nested dict of arrays (the reference's detector params) -> the
     same nested dict of float32 tensors on `device`. Tensor leaves are
-    moved as they are."""
+    moved as they are. Lists (Swin's stages and blocks) stay lists, and
+    a dict keyed "0", "1", ... (the same spelled by paths, as a `.npz`
+    checkpoint's names spell it) becomes the list."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        if tree and set(tree) == {str(i) for i in range(len(tree))}:
+            tree = [tree[str(i)] for i in range(len(tree))]
+        else:
+            return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.array(tree, np.float32), device=device)
@@ -113,13 +190,19 @@ def _decode_detections(cfg: DetectorConfig, cls_logits, box_raw,
     return Detections(top_boxes, top_scores, top_probs)
 
 
+def _embed(params: Params, cfg: DetectorConfig,
+           images: torch.Tensor) -> torch.Tensor:
+    """Images [B, H, W, 3] -> patch tokens (vit.vit_embed with the
+    backbone's patch embed)."""
+    return vit.vit_embed(params["backbone"][config_backbone(cfg)], images,
+                         patch=cfg.patch)
+
+
 def detector_raw(params: Params, cfg: DetectorConfig,
                  images: torch.Tensor):
     """Images [B, H, W, 3] -> the raw head outputs of `detector_raw_tokens`
     on their patch tokens (vit.vit_embed)."""
-    tokens = vit.vit_embed(params["backbone"]["vit"], images,
-                           patch=cfg.patch)
-    return detector_raw_tokens(params, cfg, tokens)
+    return detector_raw_tokens(params, cfg, _embed(params, cfg, images))
 
 
 def detector_forward(params: Params, cfg: DetectorConfig,
@@ -129,23 +212,52 @@ def detector_forward(params: Params, cfg: DetectorConfig,
     return _decode_detections(cfg, *detector_raw(params, cfg, images))
 
 
-def detector_raw_tokens(params: Params, cfg: DetectorConfig,
-                        tokens: torch.Tensor):
-    """Patch tokens [B, P, D] -> raw head outputs (cls_logits [B, g, g,
-    K], box_raw [B, g, g, 4], obj [B, g, g])."""
-    bb = params["backbone"]
-    feats = vit.vit_features_tokens(bb["vit"], tokens, n_heads=cfg.n_heads)
-    return head_outputs(params["heads"], neck_features(bb, feats))
+def swin_neck_features(bb: Params, c3: torch.Tensor,
+                       c4: torch.Tensor) -> torch.Tensor:
+    """The last two Swin stages' normed maps c3 [B, g, g, C3] and c4
+    [B, g/2, g/2, C4] -> post-neck map [B, g, g, F]: lateral3(c3) plus
+    lateral4(c4) upsampled 2x (nearest), then the smooth conv and GELU."""
+    neck = bb["neck"]
+    top = conv2d(neck["lateral4"], c4)
+    b, h, w, f = top.shape
+    top = top[:, :, None, :, None].expand(b, h, 2, w, 2, f).reshape(
+        b, 2 * h, 2 * w, f)
+    return gelu(conv2d(neck["smooth"], conv2d(neck["lateral3"], c3) + top))
+
+
+def _swin_maps(sw: Params, cfg: DetectorConfig,
+               tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Patch tokens [B, P, D] -> the last two stages' normed maps."""
+    b, n_patches, d = tokens.shape
+    g = grid_side(n_patches, "tokens")
+    x = layernorm(sw["patch_norm"], tokens.reshape(b, g, g, d))
+    maps = swin.swin_stages(sw["stages"], cfg.swin, x)
+    return layernorm(sw["norm3"], maps[-2]), layernorm(sw["norm4"], maps[-1])
 
 
 def detector_neck_feats_tokens(params: Params, cfg: DetectorConfig,
                                tokens: torch.Tensor) -> torch.Tensor:
     """Patch tokens [B, P, D] -> post-neck feature map [B, g, g, F]: the
     shared frozen half of the forward when the heads train per camera
-    (the same features are staged as the head-only training payload)."""
+    (the same features are staged as the head-only training payload).
+    The backbone runs inside the span `madeye/backbone`."""
     bb = params["backbone"]
-    feats = vit.vit_features_tokens(bb["vit"], tokens, n_heads=cfg.n_heads)
+    if config_backbone(cfg) == "swin":
+        with span("madeye/backbone"):
+            c3, c4 = _swin_maps(bb["swin"], cfg, tokens)
+        return swin_neck_features(bb, c3, c4)
+    with span("madeye/backbone"):
+        feats = vit.vit_features_tokens(bb["vit"], tokens,
+                                        n_heads=cfg.n_heads)
     return neck_features(bb, feats)
+
+
+def detector_raw_tokens(params: Params, cfg: DetectorConfig,
+                        tokens: torch.Tensor):
+    """Patch tokens [B, P, D] -> raw head outputs (cls_logits [B, g, g,
+    K], box_raw [B, g, g, 4], obj [B, g, g])."""
+    return head_outputs(params["heads"],
+                        detector_neck_feats_tokens(params, cfg, tokens))
 
 
 def detections_from_feats(cfg: DetectorConfig, heads: Params,
@@ -246,8 +358,8 @@ def detector_loss(params: Params, cfg: DetectorConfig, images: torch.Tensor,
     freeze_backbone detaches the post-neck features, so no gradient
     reaches params["backbone"] (the host-side fine-tune trains the heads
     only)."""
-    feats = detector_neck_feats_tokens(params, cfg, vit.vit_embed(
-        params["backbone"]["vit"], images, patch=cfg.patch))
+    feats = detector_neck_feats_tokens(params, cfg,
+                                       _embed(params, cfg, images))
     if freeze_backbone:
         feats = feats.detach()
     return detector_loss_from_outputs(

@@ -5,7 +5,9 @@ blocks a list, as in the reference.
 
 Layout: NHWC feature maps between stages; windows flattened for
 attention. Attention is the plain biased path (models/attention.
-window_attention), as the reference's is.
+window_attention), as the reference's is. The relative-position index
+and the shifted-window masks are built once per (map size, window,
+shift, device) and reused, so a forward copies nothing to the device.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.models.layers import (
     mlp,
     mlp_init,
     patch_embed,
+    shape_only,
     trunc_normal,
 )
 from repro_torch.models.vit import classifier_nll
@@ -45,6 +48,34 @@ def _rel_position_index(window: int) -> np.ndarray:
     rel = flat[:, :, None] - flat[:, None, :]        # [2, w^2, w^2]
     rel = rel.transpose(1, 2, 0) + (window - 1)
     return rel[..., 0] * (2 * window - 1) + rel[..., 1]
+
+
+_CONSTANTS: dict = {}
+
+
+def _constant(key: tuple, device, build) -> torch.Tensor:
+    """build() once per key and device; where tensors carry no values
+    (the meta device, a FakeTensorMode) built anew, never kept."""
+    if shape_only(device):
+        return build()
+    key = key + (torch.device(device),)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = build()
+    return _CONSTANTS[key]
+
+
+def rel_index(window: int, device) -> torch.Tensor:
+    """_rel_position_index(window) on `device`, made once."""
+    return _constant(("rel_index", window), device, lambda: torch.as_tensor(
+        _rel_position_index(window), device=device))
+
+
+def shift_mask(h: int, w: int, window: int, shift: int,
+               device) -> torch.Tensor:
+    """attention.shifted_window_mask on `device`, made once."""
+    return _constant(("mask", h, w, window, shift), device,
+                     lambda: attn.shifted_window_mask(h, w, window, shift,
+                                                      device=device))
 
 
 def _effective_window(map_size: int, preferred: int) -> int:
@@ -88,8 +119,7 @@ def swin_block(p: Params, x: torch.Tensor, *, n_heads: int, window: int,
     t = window * window
     rel_bias = p["rel_bias"][rel_index.reshape(-1)].reshape(t, t, -1)
     rel_bias = rel_bias.permute(2, 0, 1)             # [heads, T, T]
-    mask = (attn.shifted_window_mask(h, w, window, shift, device=x.device)
-            if shift > 0 else None)
+    mask = shift_mask(h, w, window, shift, x.device) if shift > 0 else None
     wins = attn.window_attention(p["attn"], wins, n_heads=n_heads,
                                  rel_bias=rel_bias, mask=mask)
     # windows sharded only as whole images are, so the map reassembles
@@ -122,14 +152,29 @@ def _stage_heads(cfg: VisionConfig) -> list[int]:
     return [max(1, d // 32) for d in cfg.dims]
 
 
-def swin_init(gen, cfg: VisionConfig, device=None) -> Params:
-    """Fresh weights in cfg.dtype from `gen` (a torch.Generator, drawn on
-    its device, or a numpy Generator), on `device` (the card unless the
-    caller passes "cpu")."""
-    if not cfg.swin:
-        raise ValueError(f"{cfg.name} is not a Swin config")
-    device = resolve_device(device)
-    kw = dict(device=device, dtype=cfg.dtype)
+def swin_stages(stages: list, cfg: VisionConfig,
+                x: torch.Tensor) -> list[torch.Tensor]:
+    """x [B, H, W, C] after the patch norm -> each stage's output map
+    (its blocks run, before its merge). Each stage's window is
+    _effective_window of its map; odd blocks shift by half a window
+    unless the map is no larger than the window."""
+    heads = _stage_heads(cfg)
+    outs = []
+    for s, stage in enumerate(stages):
+        for i, bp in enumerate(stage["blocks"]):
+            eff_w = _effective_window(x.shape[1], cfg.window)
+            shift = 0 if (i % 2 == 0 or x.shape[1] <= eff_w) else eff_w // 2
+            x = swin_block(bp, x, n_heads=heads[s], window=eff_w,
+                           shift=shift, rel_index=rel_index(eff_w, x.device))
+        outs.append(x)
+        if "merge" in stage:
+            x = patch_merge(stage["merge"], x)
+    return outs
+
+
+def swin_stages_init(gen, cfg: VisionConfig, **kw) -> list:
+    """Fresh stages from `gen`: each its blocks and, but the last, the
+    merge into the next (kw: device, dtype)."""
     heads = _stage_heads(cfg)
     stages = []
     for s, (depth, dim) in enumerate(zip(cfg.depths, cfg.dims)):
@@ -138,6 +183,18 @@ def swin_init(gen, cfg: VisionConfig, device=None) -> Params:
         if s < len(cfg.depths) - 1:
             stage["merge"] = patch_merge_init(gen, dim, **kw)
         stages.append(stage)
+    return stages
+
+
+def swin_init(gen, cfg: VisionConfig, device=None) -> Params:
+    """Fresh weights in cfg.dtype from `gen` (a torch.Generator, drawn on
+    its device, or a numpy Generator), on `device` (the card unless the
+    caller passes "cpu")."""
+    if not cfg.swin:
+        raise ValueError(f"{cfg.name} is not a Swin config")
+    device = resolve_device(device)
+    kw = dict(device=device, dtype=cfg.dtype)
+    stages = swin_stages_init(gen, cfg, **kw)
     return {
         "patch_embed": conv_init(gen, cfg.patch, cfg.patch, 3, cfg.dims[0],
                                  **kw),
@@ -150,10 +207,8 @@ def swin_init(gen, cfg: VisionConfig, device=None) -> Params:
 
 def swin_forward(params: Params, cfg: VisionConfig,
                  images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] -> logits [B, n_classes]. Each stage's window
-    is _effective_window of its map; odd blocks shift by half a window
-    unless the map is no larger than the window."""
-    heads = _stage_heads(cfg)
+    """images [B, H, W, 3] -> logits [B, n_classes] (swin_stages, the
+    last stage's map normed and pooled)."""
     pe = params["patch_embed"]
     wflat = pe["w"].to(cfg.dtype).reshape(-1, pe["w"].shape[-1])
     b, h, w, _ = images.shape
@@ -161,16 +216,7 @@ def swin_forward(params: Params, cfg: VisionConfig,
                     patch=cfg.patch)
     x = batch_rows(x.reshape(b, h // cfg.patch, w // cfg.patch, -1))
     x = layernorm(params["patch_norm"], x)
-    for s, stage in enumerate(params["stages"]):
-        for i, bp in enumerate(stage["blocks"]):
-            eff_w = _effective_window(x.shape[1], cfg.window)
-            shift = 0 if (i % 2 == 0 or x.shape[1] <= eff_w) else eff_w // 2
-            rel_index = torch.as_tensor(_rel_position_index(eff_w),
-                                        device=x.device)
-            x = swin_block(bp, x, n_heads=heads[s], window=eff_w,
-                           shift=shift, rel_index=rel_index)
-        if "merge" in stage:
-            x = patch_merge(stage["merge"], x)
+    x = swin_stages(params["stages"], cfg, x)[-1]
     x = layernorm(params["final_norm"], x)
     x = x.mean(dim=(1, 2))                           # global average pool
     return linear(params["head"], x)

@@ -146,7 +146,8 @@ def _host_events(prof) -> list:
                          ids=["frozen", "distill"])
 def test_step_phases_are_profiler_ranges(distill):
     """Two detector steps under a CPU profiler: each `madeye/step` range
-    holds the phases in order, and they cover it."""
+    holds the phases in order, and they cover it; the backbone's
+    `madeye/backbone` range nests inside the detect phase."""
     from torch.profiler import ProfilerActivity, profile
 
     prep = _detector_prep(distill)
@@ -164,12 +165,18 @@ def test_step_phases_are_profiler_ranges(distill):
     want = PHASES + (("madeye/learn",) if distill else ())
     for a, b in steps:
         inside = sorted((s, n, t) for n, s, t in host
-                        if n.startswith("madeye/") and n != "madeye/step"
+                        if n.startswith("madeye/")
+                        and n not in ("madeye/step", "madeye/backbone")
                         and a <= s and t <= b)
         assert tuple(n for _, n, _ in inside) == want
         assert all(inside[i][2] <= inside[i + 1][0]
                    for i in range(len(inside) - 1))     # no overlap
         assert sum(t - s for s, _, t in inside) >= 0.9 * (b - a)
+        detect = next((s, t) for s, n, t in inside if n == "madeye/detect")
+        backbone = [(s, t) for n, s, t in host
+                    if n == "madeye/backbone" and a <= s and t <= b]
+        assert len(backbone) == 1
+        assert detect[0] <= backbone[0][0] and backbone[0][1] <= detect[1]
 
 
 def test_spans_leave_the_episode_unchanged():
