@@ -16,7 +16,10 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      flash_attention (the ViT's layer, stablelm-3b's causal width, GQA
      with q_offset, bf16, and 192- and 256-wide heads), box_iou (bit-equal),
      frame_delta and rmsnorm at full-size shapes, threefry (bit-equal)
-     on every draw of a scene step and on the render noise — and time
+     on every draw of a scene step and on the render noise, dense (the
+     models' float32 linears: split TF32, bias and GELU fused) at
+     swinb-f32-k18's stage-3 fc1 and stage-4 fc2 and approx-f256-k18's
+     up-projection, wq and down-projection — and time
      each with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call; kernels whose device time
      is near or below a Python call's dispatch time also get a
@@ -29,7 +32,8 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      each of the four main-path kernels (shape_search, budget_walk,
      oracle_pass, crop_patchify) must have launched once per step,
      threefry 19 times in each step (the scene advance's 16 draws and
-     the render noise's 3), and no other (run_fleet runs the
+     the render noise's 3), dense 36 times in each (the ViT's linears),
+     and no other (run_fleet runs the
      reference's plain attention, the shape search scores its
      candidates inside shape_search and the oracle pass rasterizes
      inside oracle_pass); the result must be well
@@ -110,8 +114,10 @@ Phases (every one must pass; the exit code is non-zero otherwise):
      just before and read just after each call: stablelm-3b at full
      width and depth in float32 (4 requests of 2048 prompt tokens + 16
      continuation tokens): lm_forward with impl="flash" (flash_attention
-     once per layer, 32, and no other kernel) and impl="xla", gqa_prefill
-     over the prompts and 16 teacher-forced gqa_decode_steps (no kernel);
+     once per layer, 32, dense once per linear, 225, and no other
+     kernel) and impl="xla" (dense, 225), gqa_prefill over the prompts
+     (dense, 225) and 16 teacher-forced gqa_decode_steps (no kernel: 4
+     rows keep torch's product);
      flash vs xla and prefill vs forward within the flash kernel's float32
      tolerance scaled to the logits, each decode step vs the forward's
      position within the bf16 cache's tolerance, argmax equal wherever
@@ -209,8 +215,11 @@ Phases (every one must pass; the exit code is non-zero otherwise):
 
 In every phase, threefry's launches must equal the draws of
 scene/prng.py made on the card (counted by wrapping its public draws):
-no draw on the card runs the plain version. The phases' "and no other"
-checks read the other kernels.
+no draw on the card runs the plain version. dense launches once per
+float32 linear without gradients of at least layers.DENSE_MIN_ROWS rows
+and layers.DENSE_MIN_MACS multiply-adds: the main path and
+stablelm-3b's float32 phase check that count exactly; the other phases'
+"and no other" checks read the other kernels.
 
 Imports torch, the port (src/repro_torch), tests/torch_zoo_weights.py
 (numpy-drawn zoo weights), tests/torch_train_inputs.py (numpy-drawn
@@ -299,6 +308,7 @@ from repro_torch.kernels.cell_rasterize.ops import (  # noqa: E402
 from repro_torch.kernels.crop_patchify import (  # noqa: E402
     ops as patchify_module,
 )
+from repro_torch.kernels.dense.ops import dense, dense_plain  # noqa: E402
 from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
     crop_patchify_batch,
     crop_patchify_plain,
@@ -463,7 +473,21 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 # float32 products on the tensor cores run in split TF32: three TF32
 # products for each float32 one (csrc/wgmma.cuh)
 SPLIT_TF32 = 3
-TENSOR_CORE_KERNELS = ("crop_patchify", "flash_attention")
+TENSOR_CORE_KERNELS = ("crop_patchify", "flash_attention", "dense")
+# the models' float32 linears on the card without gradients: one dense
+# launch each (layers.linear); the ViT detector holds 6 a layer (q, k, v,
+# o, up, down) in 6 layers, one forward a step
+DENSE_KERNEL = "dense"
+VIT_LINEARS = 36
+# dense's kernel-table rows (M, K, N, act), each with a bias:
+# swinb-f32-k18's stage-3 fc1 (576 crops x 196 tokens) and stage-4 fc2
+# (576 x 49: the longest K), approx-f256-k18's up-projection, wq and
+# down-projection (4,608 crops x 197 tokens)
+DENSE_SHAPES = {"swinb stage-3 fc1": (112896, 512, 2048, "gelu"),
+                "f256 up": (907776, 192, 768, "gelu"),
+                "f256 wq": (907776, 192, 192, None),
+                "f256 down": (907776, 768, 192, None),
+                "swinb stage-4 fc2": (28224, 4096, 1024, None)}
 # stablelm-3b's attention (src/repro/configs/stablelm_3b.py: 32 heads of
 # 80 dims, MHA), batch 2 at a 4096-token context
 STABLELM_ATTN = dict(b=2, s=4096, h=32, d=80)
@@ -524,6 +548,9 @@ EXAMPLES = (
 # 2 x 512 tokens, the last 8 decoded; weights from seeded CUDA
 # generators (compared only with other runs on the card)
 LM_DENSE_ARCH, LM_BATCH, LM_PROMPT, LM_CONT = "stablelm-3b", 4, 2048, 16
+# its linears a layer (q, k, v, o; the MLP's gate, up, down), besides
+# the head
+LM_LINEARS = 7
 LM_MOE_ARCH, LM_MOE_LAYERS = "deepseek-v3-671b", 4
 LM_MOE_BATCH, LM_MOE_SEQ, LM_MOE_DECODE = 2, 512, 8
 LM_SEED = 0
@@ -643,6 +670,11 @@ SOURCES = {
         "src/repro_torch/csrc/threefry.cu",
         "none: jax.random's threefry (src/repro/scene/scene.py, "
         "src/repro/scene/render.py)"),
+    # the reference's linears are dots XLA compiles
+    "dense": (
+        "src/repro_torch/csrc/dense.cu",
+        "none: the models' dots, left to XLA (src/repro/models/"
+        "layers.py linear)"),
 }
 
 
@@ -1200,6 +1232,55 @@ def box_iou_row(a, b, label: str) -> dict:
     return row
 
 
+def dense_phase(dev) -> dict:
+    """dense at DENSE_SHAPES: one launch and no other, against its plain
+    version (cuBLAS's float32 product, TF32 off, then the bias add and
+    GELU) within 1e-4 absolute on outputs of order 1 (split TF32,
+    ~2^-22 relative per term, as crop_patchify); timed beside its bound
+    (the split-TF32 product at the TF32 rate, or x and w read and y
+    written once), the plain version and torch.matmul + add in float32
+    (the call the port no longer makes). The first shape is the row,
+    the others ride beside it."""
+    gen = np.random.default_rng(31)
+    rows = {}
+    for label, (m, k, n, act) in DENSE_SHAPES.items():
+        x = torch.as_tensor(gen.normal(0, 1, (m, k)).astype(np.float32),
+                            device=dev)
+        w = torch.as_tensor((gen.normal(0, 1, (k, n)) / math.sqrt(k))
+                            .astype(np.float32), device=dev)
+        b = torch.as_tensor(gen.normal(0, 0.1, n).astype(np.float32),
+                            device=dev)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        got = (dense(x, w, b, act=act),)
+        launched = {kk: v for kk, v in _lib.launch_counts().items() if v}
+        if launched != {DENSE_KERNEL: 1}:
+            raise AssertionError(f"dense [{label}]: launched {launched}")
+        with full_float32():
+            want = (dense_plain(x, w, b, act),)
+            torch.cuda.synchronize()
+            check_close(f"dense [{label}]", got, want, atol=1e-4)
+            row = dict(
+                max_abs_err=max_err(got, want), launches=1,
+                ms=cuda_ms(lambda: dense(x, w, b, act=act), 10),
+                graph_ms=graph_ms(lambda: dense(x, w, b, act=act), 10),
+                plain_ms=cuda_ms(lambda: dense_plain(x, w, b, act), 5),
+                library_ms=cuda_ms(lambda: x @ w + b, 5),
+                bound=split_tf32_bound(4.0 * (m * k + k * n + n + m * n),
+                                       2.0 * m * k * n))
+        del got, want, x, w, b
+        torch.cuda.empty_cache()
+        print_row(f"dense [{label}, M={m} K={k} N={n} act={act}]", row)
+        rows[label] = row
+    first, *rest = DENSE_SHAPES
+    return {DENSE_KERNEL: rows[first] | {"shapes": {
+        label: {key: rows[label][key] for key in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "library_ms")}
+        | {"bound_ms": rows[label]["bound"][0],
+           "bound_by": rows[label]["bound"][1]}
+        for label in DENSE_SHAPES}}}
+
+
 def small_parity_phase() -> None:
     """The whole port on a small input, card vs CPU: same decisions."""
     spec = FleetRunSpec(provider="detector", n_cameras=3, n_steps=3,
@@ -1323,17 +1404,23 @@ def reset_counts() -> None:
     _draws["n"] = 0
 
 
-def launch_counts(keep_draws: bool = False) -> dict:
+def launch_counts(keep_draws: bool = False,
+                  keep_dense: bool = False) -> dict:
     """The launches since reset_counts(). threefry's must equal the
     draws on the card (one launch each: none ran the plain version);
     then it is left out, unless `keep_draws`, so each path's "these
-    kernels and no other" checks read the kernels of the path."""
+    kernels and no other" checks read the kernels of the path. dense is
+    left out too, unless `keep_dense`: the paths that know their
+    linears (the main path, stablelm-3b in float32) ask for it and check
+    one launch per linear."""
     counts = _lib.launch_counts()
     if counts[DRAW_KERNEL] != _draws["n"]:
         raise AssertionError(f"{counts[DRAW_KERNEL]} threefry launches for "
                              f"{_draws['n']} draws on the card")
     if not keep_draws:
         del counts[DRAW_KERNEL]
+    if not keep_dense:
+        del counts[DENSE_KERNEL]
     return counts
 
 
@@ -1381,7 +1468,7 @@ def main_path_phase(spec: FleetRunSpec):
     with SearchRecorder() as rec, OracleRecorder() as orec, \
             StepDraws() as draws:
         result = run_fleet(spec)
-    counts = launch_counts(keep_draws=True)
+    counts = launch_counts(keep_draws=True, keep_dense=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     chosen = torch.tensor(result.chosen)
@@ -1405,10 +1492,16 @@ def main_path_phase(spec: FleetRunSpec):
         raise AssertionError(f"main-path kernels not launched once per "
                              f"step: {uneven} ({counts})")
     stray = [k for k, v in counts.items()
-             if v and k not in MAIN_PATH_KERNELS + (DRAW_KERNEL,)]
+             if v and k not in MAIN_PATH_KERNELS + (DRAW_KERNEL,
+                                                    DENSE_KERNEL)]
     if stray:
         raise AssertionError(f"kernels off the main path launched on it: "
                              f"{stray}")
+    # the ViT's linears, one dense launch each, one forward a step
+    if counts[DENSE_KERNEL] != VIT_LINEARS * (N_STEPS + 1):
+        raise AssertionError(f"dense launched {counts[DENSE_KERNEL]} times "
+                             f"on the main path, want {VIT_LINEARS} a "
+                             f"step")
     # every draw of the scene advance and the render noise one threefry
     # launch (launch_counts: none ran the plain version)
     if draws.per_step != [STEP_DRAWS] * (N_STEPS + 1):
@@ -2635,14 +2728,15 @@ def exact_bf16():
             saved
 
 
-def counted(fn):
+def counted(fn, keep_dense: bool = False):
     """(fn(), the kernels it launched {name: n}): the counters set to 0
-    just before, read just after."""
+    just before, read just after (dense too where `keep_dense`)."""
     torch.cuda.synchronize()
     reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: v for k, v in launch_counts().items() if v}
+    return out, {k: v for k, v in launch_counts(
+        keep_dense=keep_dense).items() if v}
 
 
 def expect_launches(got: dict, want: dict, label: str) -> None:
@@ -2669,40 +2763,49 @@ def lm_dense_f32(dev) -> tuple[dict, dict]:
     impl="flash" and "xla" over LM_BATCH x (LM_PROMPT + LM_CONT) tokens,
     gqa_prefill over the prompts, LM_CONT teacher-forced decode steps;
     counters from 0 around each call. Returns (launches by path, the
-    float32 weights)."""
+    float32 weights). The forwards and the prefill launch dense once per
+    linear (LM_LINEARS); a decode step's LM_BATCH rows are below
+    layers.DENSE_MIN_ROWS and launch nothing."""
     cfg = dataclasses.replace(get_config(LM_DENSE_ARCH), dtype=torch.float32)
     n, p = LM_PROMPT + LM_CONT, LM_PROMPT
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     params = lm_init(gen, cfg, device=dev)
     toks = torch.randint(0, cfg.vocab, (LM_BATCH, n), generator=gen,
                          device=dev)
+    dense_n = {DENSE_KERNEL: LM_LINEARS * cfg.n_layers + 1}
     launches = {}
-    fl, c = counted(lambda: lm_forward(params, cfg, toks, impl="flash"))
-    expect_launches(c, {"flash_attention": cfg.n_layers}, "flash forward")
+    fl, c = counted(lambda: lm_forward(params, cfg, toks, impl="flash"),
+                    keep_dense=True)
+    expect_launches(c, {"flash_attention": cfg.n_layers} | dense_n,
+                    "flash forward")
     launches["stablelm-3b f32 forward flash"] = c.get("flash_attention", 0)
-    xl, c = counted(lambda: lm_forward(params, cfg, toks, impl="xla"))
-    expect_launches(c, {}, "xla forward")
+    xl, c = counted(lambda: lm_forward(params, cfg, toks, impl="xla"),
+                    keep_dense=True)
+    expect_launches(c, dense_n, "xla forward")
     scale = float(xl.abs().max())
     tol = LM_F32_REL * scale
     err_fx = float((fl - xl).abs().max())
     sure, flips = near_tie_argmax(fl, xl, tol)
     del fl
     (pl, cache), c = counted(lambda: gqa_prefill(params, cfg, toks[:, :p],
-                                                 max_seq=n))
-    expect_launches(c, {}, "gqa_prefill")
+                                                 max_seq=n),
+                             keep_dense=True)
+    expect_launches(c, dense_n, "gqa_prefill")
     err_px = float((pl - xl[:, :p]).abs().max())
     del pl
     dec_err, dec_rel, dec_sure, dec_flips = [], [], 0, 0
     for i in range(p, n):
         (dl, cache), c = counted(lambda: gqa_decode_step(
-            params, cfg, toks[:, i:i + 1], cache))
+            params, cfg, toks[:, i:i + 1], cache), keep_dense=True)
         expect_launches(c, {}, f"gqa_decode_step {i}")
         dec_err.append(float((dl[:, 0] - xl[:, i]).abs().max()))
         dec_rel.append(rel_rms(dl[:, 0], xl[:, i]))
         s, f = near_tie_argmax(dl[:, 0], xl[:, i], LM_DECODE_TOL)
         dec_sure, dec_flips = dec_sure + s, dec_flips + f
     print(f"lm stablelm-3b f32 [{LM_BATCH} x {n}]: launches flash="
-          f"{cfg.n_layers} xla/prefill/decode=0; |logits| max {scale:.3f}; "
+          f"{cfg.n_layers} xla/prefill/decode=0, dense "
+          f"{dense_n[DENSE_KERNEL]} a forward and prefill, 0 a decode step; "
+          f"|logits| max {scale:.3f}; "
           f"flash vs xla max_abs_err={err_fx:.3e} (tol {tol:.3e}), argmax "
           f"differs at {flips} of {sure} clear positions; prefill vs "
           f"forward {err_px:.3e}; decode vs forward max_abs_err "
@@ -4247,6 +4350,7 @@ def main() -> int:
     rows = kernel_phase(dev)
     rows.update(threefry_phase(dev))
     rows.update(new_kernel_phase(dev))
+    rows.update(dense_phase(dev))
     small_parity_phase()
     spec = FleetRunSpec(
         provider="detector", n_cameras=N_CAMERAS, n_steps=N_STEPS,
@@ -4332,6 +4436,8 @@ def main() -> int:
                 | {"bound_ms": r["swin_b"]["bound"][0],
                    "bound_by": r["swin_b"]["bound"][1]}}
                if "swin_b" in r else {}),
+            # phase 3: dense at its five shapes
+            **({"shapes": r["shapes"]} if "shapes" in r else {}),
             **({"serve_launches": served_launches}
                if served_launches else {}),
             **({"tables_graph_ms": tables_graph_ms}

@@ -1,7 +1,7 @@
-// Hopper tensor-core pieces shared by crop_patchify.cu and
-// flash_attention.cu: split-TF32 rounding, shared-memory matrix
-// descriptors, the warpgroup fences, and one `wgmma.mma_async` wrapper
-// per shape the two kernels issue (m64nNk8 TF32 and m64nNk16 bf16, f32
+// Hopper tensor-core pieces shared by crop_patchify.cu,
+// flash_attention.cu and dense.cu: split-TF32 rounding, shared-memory
+// matrix descriptors, the warpgroup fences, and one `wgmma.mma_async`
+// wrapper per shape the kernels use (m64nNk8 TF32 and m64nNk16 bf16, f32
 // accumulators; A from shared memory (SS) or registers (RS), B from
 // shared memory). PTX strings and descriptor bits follow CUTLASS's
 // cute/arch/mma_sm90_gmma.hpp and mma_sm90_desc.hpp; sm_90a only.

@@ -17,6 +17,8 @@ each with a plain PyTorch version beside its wrapper:
   rmsnorm          fused RMSNorm over rows
   threefry         the threefry draws of scene/prng.py (keys, bits,
                    uniform, randint, normal), once per draw
+  dense            act(x @ w + b) in float32: the models' linears
+                   (layers.linear) on the card without gradients
 
 `_lib` builds them with nvcc at the first launch and counts launches.
 """

@@ -32,7 +32,8 @@ import torch
 
 SOURCES = ("neighbor_score.cu", "shape_search.cu", "cell_rasterize.cu",
            "oracle_pass.cu", "crop_patchify.cu", "flash_attention.cu",
-           "box_iou.cu", "frame_delta.cu", "rmsnorm.cu", "threefry.cu")
+           "box_iou.cu", "frame_delta.cu", "rmsnorm.cu", "threefry.cu",
+           "dense.cu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("neighbor_score", "shape_search", "budget_walk",
            "cell_rasterize", "oracle_pass", "crop_patchify",
            "flash_attention", "box_iou", "frame_delta", "rmsnorm",
-           "threefry")
+           "threefry", "dense")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -83,6 +84,9 @@ _SIGNATURES = {
     # n, lo, hi, span, mult, minval, stream
     "threefry_launch": [_I, _P, _L, _L, _P, _L, _U, _P, _L, _L, _F, _F, _U,
                         _U, _L, _P],
+    # x, w, bias (or null), wsplit, out, M, K, N, n_tile, gelu, vec,
+    # stream
+    "dense_launch": [_P] * 5 + [_L] + [_I] * 5 + [_P],
 }
 
 _state: dict = {"lib": None, "path": None, "log": ""}

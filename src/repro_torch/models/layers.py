@@ -7,8 +7,11 @@ convolution, and the helpers for stacked layers and parameter trees.
 Numerics follow the reference: layernorm uses the population variance
 and eps = 1e-6 (torch's default is 1e-5); the norms compute in float32
 and return x's dtype; GELU is the tanh approximation; `linear` casts
-its weights to x's dtype. The detector is float32; the LMs run in their
-config's dtype.
+its weights to x's dtype, and on plain float32 CUDA tensors that need
+no gradient, in products of at least DENSE_MIN_ROWS rows and
+DENSE_MIN_MACS multiply-adds, runs as one launch of the dense kernel
+(kernels/dense: split TF32, bias and GELU fused). The detector is float32; the LMs run
+in their config's dtype.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.dense.ops import dense
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_plain
 from repro_torch.models.layout import activation_sharding, local_shape
 from repro_torch.train.optim import tree_leaves, tree_map
@@ -221,11 +226,55 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _fence(y2.reshape(*lead, y2.shape[-1]))
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = _matmul(x, p["w"].to(x.dtype))
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
-    return y
+# The dense kernel pays where the product is large enough. Below
+# DENSE_MIN_ROWS rows its pre-pass (w read once, 2 |w| written, then read
+# again for each 128-row tile) and its few output tiles cost more than
+# cuBLAS's float32 product, which reads w once (an H100, stablelm-3b's
+# 2560 x 2560: 4.7x slower at 4 rows, 1.4x at 256; Swin-B's 4096 x 1024
+# 1.75x slower at 512; the large weights measured 1.06-1.84x faster
+# from 1,024 rows). Below DENSE_MIN_MACS multiply-adds (M K N) the call is as
+# short as its host dispatch, which is longer than torch's (the ViT's
+# 192 x 768: 1.66x slower at 2,048 rows, 1.78x faster at 8,192).
+DENSE_MIN_ROWS = 1024
+DENSE_MIN_MACS = 2 ** 30
+
+
+def _dense_engages(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor | None) -> bool:
+    """The product runs in the dense kernel (kernels/dense) when every
+    operand is a plain float32 CUDA tensor holding values (no DTensor,
+    no functorch wrapper, no FakeTensorMode), the result needs no
+    gradient, and x has at least DENSE_MIN_ROWS rows and the product
+    DENSE_MIN_MACS multiply-adds (an LM's decode step, a few rows, keeps
+    torch's product)."""
+    ts = (x, w) if b is None else (x, w, b)
+    if any(t.dtype != torch.float32 or t.device.type != "cuda"
+           or isinstance(t, DTensor) or is_functorch_wrapped_tensor(t)
+           for t in ts):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return False
+    rows = x.shape[:-1].numel()
+    if rows < DENSE_MIN_ROWS or rows * w.numel() < DENSE_MIN_MACS:
+        return False
+    return not shape_only()
+
+
+def linear(p: Params, x: torch.Tensor,
+           act: str | None = None) -> torch.Tensor:
+    """x @ w + b, then the GELU where act="gelu". Plain float32 CUDA
+    tensors without gradients, in products large enough
+    (_dense_engages), take one launch of the dense kernel (the product
+    in split TF32 on the tensor cores, bias and GELU in its epilogue);
+    everything else runs the product as torch does."""
+    w = p["w"].to(x.dtype)
+    b = p["b"].to(x.dtype) if "b" in p else None
+    if _dense_engages(x, w, b):
+        return dense(x.contiguous(), w.contiguous(), b, act=act)
+    y = _matmul(x, w)
+    if b is not None:
+        y = y + b
+    return gelu(y) if act == "gelu" else y
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -277,11 +326,10 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """down(act(up(x))): GELU, or SwiGLU (silu(gate(x)) * up(x)) where
     the parameters hold a gate."""
     x = batch_rows(x)
-    h = linear(p["up"], x)
-    if "gate" in p:
+    gated = "gate" in p
+    h = linear(p["up"], x, act=None if gated else "gelu")
+    if gated:
         h = silu(linear(p["gate"], x)) * h
-    else:
-        h = gelu(h)
     return linear(p["down"], h)
 
 
