@@ -115,9 +115,10 @@ def test_run_fleet_never_falls_back_to_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every repro_torch module (and chip_smoke.py) leaves no
-    jax, repro, msgpack or ml_dtypes module loaded (the checkpoints
-    carry their own msgpack subset and bf16 through int16)."""
+    """Importing every repro_torch module (and tools/kernel_table.py)
+    leaves no jax, repro, msgpack or ml_dtypes module loaded (the
+    checkpoints carry their own msgpack subset and bf16 through
+    int16)."""
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
                                   .with_suffix("").parts)
@@ -145,11 +146,12 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import kernel_table\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ("
         "'jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')]\n"
         "print(len(sys.modules)); sys.exit(1 if bad else 0)\n")
-    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    env = dict(os.environ,
+               PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tools'}")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -157,7 +159,7 @@ def test_port_imports_no_jax():
 
 def test_port_sources_do_not_import_jax():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tools" / "kernel_table.py")
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):

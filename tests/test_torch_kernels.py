@@ -5,7 +5,7 @@ Every wrapper takes its plain PyTorch version when its tensors lie on
 the CPU; those plain versions are held against the JAX references (and
 the neighbor-score Pallas kernel in interpret mode) on the same seeded
 numpy inputs. The CUDA kernels against their plain versions:
-test_torch_kernels_cuda.py and chip_smoke.py.
+test_torch_kernels_cuda.py and tools/kernel_table.py.
 
 Tolerances: counts, candidate masks and rendered pixels are exact.
 Sums are float32 taken in another order than XLA's (areas, moments,

@@ -16,15 +16,30 @@ another order) and 2e-2 in bfloat16; IoU bit-equal (max_abs_err 0);
 NMS masks, matches, changed tiles and int8 residuals exact;
 rmsnorm 1e-5; shape_search and budget_walk decisions (masks, walk
 orders, counts) exact and the walk time 1e-6 relative (its hop sum in
-another order). chip_smoke.py runs the same checks at full-width shapes.
+another order).
+
+At the main path's full width (madeye-approx, 64 cameras, 8 steps,
+shortlist_k=18, frozen and with head-only distillation; full-network
+distillation at 3 steps) run_fleet launches each main-path kernel once
+a step, threefry once for each of the 19 draws a step, dense once for
+each of the ViT's 36 linears (none in full mode, whose forward runs
+under vmap), and nothing else;
+and every oracle_pass, shape_search and budget_walk call of the episode
+gives what its plain version gives on the same inputs.
+`tools/kernel_table.py` times the kernels at the cells' shapes.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DEFAULT_GRID, OrientationGrid  # noqa: E402
+from repro_torch.fleet import api as api_module  # noqa: E402
+from repro_torch.fleet import runner as runner_module  # noqa: E402
 from repro_torch.fleet import state as tstate  # noqa: E402
+from repro_torch.fleet import step as step_module  # noqa: E402
+from repro_torch.fleet.api import FleetRunSpec, run_fleet  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.box_iou.ops import (  # noqa: E402
     box_iou,
@@ -67,6 +82,8 @@ from repro_torch.kernels.shape_search.ops import (  # noqa: E402
     shape_search_batch,
     shape_search_plain,
 )
+from repro_torch.learn.spec import DistillSpec  # noqa: E402
+from repro_torch.scene import observe as observe_module  # noqa: E402
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
     render_background,
@@ -75,6 +92,8 @@ from repro_torch.scene.scene import SceneSpec  # noqa: E402
 from torch_kernel_inputs import (  # noqa: E402
     GEO,
     SEARCH_GRIDS,
+    clone_tree,
+    count_card_draws,
     neighbor_inputs,
     oracle_args,
     oracle_state,
@@ -138,11 +157,11 @@ def test_cell_rasterize_shapes_on_card(cuda, f, m, p):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
-def assert_oracle_equal(got, want, var64):
+def assert_oracle_equal(got, want, var64=None):
     """counts, nbox and acc_true exact; areas, centroid and extent 1e-5;
     the spread as a variance (spread^2) within 1e-2 of the plain
-    version's and of the float64 sum of the same per-object terms
-    (`var64`), at every slot count. The plain version's variance E[c^2]
+    version's and, given `var64`, of the float64 sum of the same
+    per-object terms, at every slot count. The plain version's variance E[c^2]
     - |E[c]|^2 cancels (E[c^2] reaches ~3e4 deg^2, one float32 ulp of it
     ~2e-3: up to 8.5e-3 off the float64 sum at 128 slots,
     tools/spread_error.py); the kernel takes its moments about each
@@ -154,9 +173,10 @@ def assert_oracle_equal(got, want, var64):
     for name in ("areas", "centroid", "extent"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    rtol=1e-5, atol=1e-5, msg=name)
-    k_err, p_err, _, _ = spread_errors(got, want, var64)
-    assert k_err <= 1e-3, f"kernel spread^2 off float64 by {k_err}"
-    assert p_err <= 1e-2, f"plain spread^2 off float64 by {p_err}"
+    if var64 is not None:
+        k_err, p_err, _, _ = spread_errors(got, want, var64)
+        assert k_err <= 1e-3, f"kernel spread^2 off float64 by {k_err}"
+        assert p_err <= 1e-2, f"plain spread^2 off float64 by {p_err}"
     torch.testing.assert_close(got.spread ** 2, want.spread ** 2,
                                rtol=1e-5, atol=1e-2)
 
@@ -535,6 +555,32 @@ def test_nms_and_matching_card_equals_cpu(cuda):
             assert torch.equal(c.cpu(), g)
 
 
+@pytest.mark.requires_cuda
+def test_kernel_apis_launch_once_a_call(cuda):
+    """box_iou, nms_mask and match_boxes launch box_iou once a call,
+    frame_delta and rmsnorm their kernels once."""
+    gen = torch.Generator().manual_seed(5)
+    boxes = torch.cat([torch.rand(32, 2, generator=gen),
+                       0.05 + 0.2 * torch.rand(32, 2, generator=gen)],
+                      1).to(cuda)
+    scores = torch.rand(32, generator=gen).to(cuda)
+    frame = torch.rand(64, 256, 3, generator=gen).to(cuda)
+    rows = torch.randn(8, 256, generator=gen).to(cuda)
+    for fn, name in (
+            (lambda: box_iou(boxes, boxes), "box_iou"),
+            (lambda: nms_mask(boxes, scores, scores > 0.2), "box_iou"),
+            (lambda: match_boxes(boxes, boxes.flip(0), scores > 0.5),
+             "box_iou"),
+            (lambda: frame_delta(frame, frame.flip(0)), "frame_delta"),
+            (lambda: rmsnorm(rows, torch.ones(256, device=cuda)),
+             "rmsnorm")):
+        _lib.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _lib.launch_counts().items() if v} == {
+            name: 1}
+
+
 # aligned rows (W * 3 a multiple of 16: 16-float items) and unaligned
 # ones (scalar items), tiles in registers and tiles past them (a second
 # read), edge tiles in both directions, and one 1080p frame
@@ -625,3 +671,99 @@ def test_empty_input_launches_nothing(cuda, name):
         assert all(x.numel() == 0 for x in out)
     else:
         assert out.numel() == 0
+
+
+MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
+                     "crop_patchify")
+# scene/prng.py's public draws, one threefry launch each on the card: a
+# detector step at stride 1 makes 16 in the scene advance (fold_in, split
+# x 3, randint x 4, normal x 5, uniform x 3) and 3 in the render noise
+# (fold_in x 2, normal)
+STEP_DRAWS = 16 + 3
+VIT_LINEARS = 36            # q, k, v, o, up, down in each of 6 layers
+
+
+def _record(monkeypatch, module, name, calls):
+    """Keep (args, kwargs, result) clones of every call of module.name
+    (the name its callers look up)."""
+    fn = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((clone_tree(args), clone_tree(kwargs),
+                      clone_tree(out)))
+        return out
+
+    monkeypatch.setattr(module, name, recorded)
+
+
+# (distill, steps, dense launches a step): head-only distillation runs
+# the shared backbone once over the shortlist, as the frozen path; full
+# mode runs each camera's network under vmap, where linear keeps torch's
+# product (its depth cut to 3 steps for the card's memory)
+MAIN_PATH_CASES = [(None, 8, VIT_LINEARS), (DistillSpec(), 8, VIT_LINEARS),
+                   (DistillSpec(head_only=False), 3, 0)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("distill,n_steps,dense", MAIN_PATH_CASES,
+                         ids=["frozen", "distill", "distill-full"])
+def test_main_path_at_full_width(cuda, distill, n_steps, dense,
+                                 monkeypatch):
+    n_cameras = 64
+    steps = n_steps + 1                         # and the warm-up step
+    calls = {"oracle_pass": [], "shape_search_batch": [],
+             "budget_walk_batch": []}
+    _record(monkeypatch, observe_module, "oracle_pass",
+            calls["oracle_pass"])
+    for name in ("shape_search_batch", "budget_walk_batch"):
+        _record(monkeypatch, step_module, name, calls[name])
+    draws, per_step = count_card_draws(monkeypatch), []
+    step_fn = runner_module.episode_step
+
+    def counted_step(*args, **kwargs):
+        before = _lib.LAUNCHES["threefry"]
+        out = step_fn(*args, **kwargs)
+        per_step.append(_lib.LAUNCHES["threefry"] - before)
+        return out
+
+    for module in (api_module, runner_module):
+        monkeypatch.setattr(module, "episode_step", counted_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = FleetRunSpec(provider="detector", n_cameras=n_cameras,
+                        n_steps=n_steps, shortlist_k=18, distill=distill,
+                        provider_kwargs={
+                            "det_cfg": get_config("madeye-approx")})
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    result = run_fleet(spec)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _lib.launch_counts().items() if v}
+
+    # no draw on the card ran the plain version
+    assert counts.pop("threefry") == draws[0]
+    assert per_step == [STEP_DRAWS] * steps
+    assert counts == {k: steps for k in MAIN_PATH_KERNELS} | (
+        {"dense": dense * steps} if dense else {})
+    chosen = torch.tensor(result.chosen)
+    acc = torch.tensor(result.acc_per_step)
+    assert chosen.shape == (n_steps, n_cameras)
+    assert bool(((chosen >= 0) & (chosen < DEFAULT_GRID.n_cells)).all())
+    assert bool(((acc >= 0) & (acc <= 1)).all())
+    assert len(result.frames_sent) == n_steps
+
+    assert [len(c) for c in calls.values()] == [steps] * 3
+    for args, kw, got in calls["oracle_pass"]:
+        assert_oracle_equal(got, oracle_pass_plain(*args, **kw))
+    for name, plain in (("shape_search_batch", shape_search_plain),
+                        ("budget_walk_batch", budget_walk_plain)):
+        for args, _, got in calls[name]:
+            want = plain(*args)
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            for g, w in zip(got, want):
+                if g.dtype == torch.float32:    # the walk's hop sum
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+                else:
+                    assert torch.equal(g, w), name

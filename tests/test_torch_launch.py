@@ -78,7 +78,7 @@ CELLS = [("stablelm-3b", "train_4k"), ("stablelm-3b", "decode_32k"),
          ("deepseek-v3-671b", "decode_32k"), ("vit-b16", "serve_b128"),
          ("swin-b", "serve_b1"), ("dit-l2", "gen_fast"),
          ("flux-dev", "gen_fast")]
-# real run vs dry run on a 1 x 1 mesh (chip_smoke.py's phase 8h cells)
+# real run vs dry run on a 1 x 1 mesh (test_torch_launch_cuda.py's cells)
 PARITY = [("vit-b16", "serve_b128"), ("dit-l2", "gen_fast")]
 # DTensor args on a one-rank mesh vs plain tensors: the outputs equal
 VALUES = [("vit-b16", "serve_b128"), ("swin-b", "serve_b1"),

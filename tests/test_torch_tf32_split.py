@@ -4,8 +4,8 @@ crop_patchify and flash_attention run their float32 products on the
 H100's tensor cores in TF32, which keeps 10 of float32's 23 mantissa
 bits. A numpy emulation of the card's rounding (cvt.rna.tf32.f32:
 nearest, ties away from zero) shows, at the two kernels' real depths,
-that one TF32 product (1xTF32) breaks the tolerances chip_smoke.py and
-the card-only tests hold them to (1e-4 on patch tokens, 3e-5 on float32
+that one TF32 product (1xTF32) breaks the tolerances tools/kernel_table.py
+and the card-only tests hold them to (1e-4 on patch tokens, 3e-5 on float32
 attention), and that the split product hi.hi' + hi.lo' + lo.hi'
 (3xTF32, csrc/wgmma.cuh) stays far inside them. Products are summed in
 float64 here, so the figures isolate the rounding of the operands.
@@ -27,7 +27,7 @@ from repro_torch.kernels.crop_patchify.ops import (
     tf32_split_weights,
 )
 
-PATCH_TOL = 1e-4     # crop_patchify tokens (chip_smoke.py, card tests)
+PATCH_TOL = 1e-4     # crop_patchify tokens (kernel table, card tests)
 ATTN_TOL = 3e-5      # float32 flash_attention outputs
 
 

@@ -1,5 +1,5 @@
-"""Multi-rank runs for the port's sharding tests and chip_smoke.py's
-phase 8g: n spawned processes in one `gloo` group over a `file://`
+"""Multi-rank runs for the port's sharding tests, on the CPU and on the
+card: n spawned processes in one `gloo` group over a `file://`
 store (never a TCP port: the test workers run side by side), each on
 one intra-op thread.
 
@@ -9,10 +9,11 @@ one intra-op thread.
 
 `fn` must be importable by name (a module-level function): the ranks
 start from a fresh interpreter (`spawn`, never `fork`). The rank bodies
-of tests/test_torch_distributed.py, tests/test_torch_fleet_shard.py and
-tests/test_torch_launch.py live below, so that a rank imports torch and
-the port only, not JAX. `spawn_alone` starts one process with no group
-(the dry run makes its own "fake" world there).
+of tests/test_torch_distributed.py, tests/test_torch_fleet_shard.py,
+tests/test_torch_launch.py and tests/test_torch_shard_cuda.py live
+below, so that a rank imports torch and the port only, not JAX.
+`spawn_alone` starts one process with no group (the dry run makes its
+own "fake" world there).
 """
 from __future__ import annotations
 
@@ -411,6 +412,30 @@ def fleet_suite_rank(rank, specs, meshes, mbps, det_npz=None):
         out["engine"] = engine_rank(rank, det_npz, n_data, n_model)
         out["uneven"] = uneven_rank(rank, n_data, n_model)
     return out
+
+
+def card_fleet_rank(rank, spec, n_data):
+    """One of n_data processes sharing cuda:0 in the gloo group (NCCL
+    refuses two ranks on one device): its share of `spec`'s fleet with
+    ShardSpec("debug", n_data) -> what the card test compares, and the
+    kernels it launched but threefry and dense."""
+    import dataclasses
+
+    from repro_torch.fleet.api import ShardSpec, run_fleet
+    from repro_torch.kernels import _lib
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _lib.reset_launch_counts()
+    res = run_fleet(dataclasses.replace(
+        spec, shard=ShardSpec("debug", n_data=n_data)))
+    torch.cuda.synchronize()
+    return {"chosen": res.chosen, "frames_sent": res.frames_sent,
+            "accuracy": res.accuracy,
+            "pred_acc": res.out.pred_acc.cpu().numpy(),
+            "launches": {k: v for k, v in _lib.launch_counts().items()
+                         if v and k not in ("threefry", "dense")}}
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import torch
 from repro_torch.core import DEFAULT_GRID, OrientationGrid
 from repro_torch.kernels.cell_rasterize.ops import window_arrays
 from repro_torch.kernels.neighbor_score.ops import geometry_arrays
+from repro_torch.models.layers import DENSE_MIN_MACS, DENSE_MIN_ROWS
 
 M = 22          # 14 people + 8 cars
 GEO = geometry_arrays(DEFAULT_GRID)
@@ -240,3 +241,51 @@ def spread_errors(got, want, var64):
     v = var64.clamp(min=0.0)
     return (float((g - v).abs().max()), float((w - v).abs().max()),
             float((g - w).abs().max()), int(((g - w).abs() > 1e-2).sum()))
+
+
+def clone_tree(x):
+    """Tensors in nested tuples (NamedTuples keep their type) and dicts,
+    cloned: what a recorded call gave, kept past the caller's in-place
+    updates."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [clone_tree(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+# scene/prng.py's public draws: one threefry launch each on the card
+DRAWS = ("fold_in", "split", "random_bits", "uniform", "randint", "normal")
+
+
+def count_card_draws(monkeypatch) -> list:
+    """Wrap scene/prng.py's public draws (every caller reaches them as
+    prng.<name>) to count the calls on a CUDA key -> a one-element list
+    holding that count: the threefry launches a run must make."""
+    from repro_torch.scene import prng
+    n = [0]
+    for name in DRAWS:
+        def draw(key, *args, _fn=getattr(prng, name), **kwargs):
+            n[0] += prng._on_card(key)
+            return _fn(key, *args, **kwargs)
+        monkeypatch.setattr(prng, name, draw)
+    return n
+
+
+def vit_dense_launches(cfg, batch: int) -> int:
+    """dense launches of one float32 ViT forward without gradients over
+    `batch` images of cfg: each layer's q, k, v, o (d x d), MLP up (d x
+    d_ff) and down whose rows (CLS and patch tokens) and multiply-adds
+    reach DENSE_MIN_ROWS and DENSE_MIN_MACS (layers.linear). The patch
+    embed is a product of its own, the detector's heads are convolutions,
+    and a classifier head's one row an image stays under DENSE_MIN_ROWS
+    at the batches the tests run."""
+    rows = batch * (1 + (cfg.img_res // cfg.patch) ** 2)
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = ((d, d),) * 4 + ((d, ff), (ff, d))
+    return cfg.n_layers * sum(
+        rows >= DENSE_MIN_ROWS and rows * k * n >= DENSE_MIN_MACS
+        for k, n in shapes)

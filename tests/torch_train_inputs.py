@@ -1,7 +1,7 @@
 """Seeded numpy weights and batches for one train step of every family's
 SMOKE config, and the comparison of two such steps with the stated
-tolerances. Imports numpy and the port only, so the card-only tests and
-chip_smoke.py run it where JAX is not installed.
+tolerances. Imports numpy and the port only, so the card-only tests run
+it where JAX is not installed.
 
 Tolerances of one step (`check_step`; `make_train_step`'s defaults:
 AdamW, lr 1e-4, weight decay 0.01, global-norm clip 1.0):

@@ -4,8 +4,8 @@ by numpy (the same under any PyTorch), float32, with every leaf a
 trained model would have moved off its init perturbed (zero-initialised
 adaLN linears and final projections get LeCun-scale draws, biases small
 draws, norm scales 1 + small draws), so every parameter is exercised.
-Imports numpy and the port only, so the card-only tests and
-chip_smoke.py run it where JAX is not installed."""
+Imports numpy and the port only, so the card-only tests run it where
+JAX is not installed."""
 import dataclasses
 
 import numpy as np

@@ -7,7 +7,7 @@ are timed alike in one run on one card.
 
 DIR holds the `repro_torch` package (default: this checkout's src); its
 kernels are built from DIR's sources at first use. Frames and timing are
-chip_smoke.py's: 16 x 128 tiles moving by N(0, sigma) noise with sigma
+tools/kernel_table.py's: 16 x 128 tiles moving by N(0, sigma) noise with sigma
 0.002, 0.025 or 0.05, `ms` the mean of 100 back-to-back calls by CUDA
 events (the wrapper's host dispatch included), `graph_ms` one CUDA graph
 of 100 calls replayed (device time per call). Prints the card's
