@@ -73,6 +73,8 @@ _SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, scale, causal, q_offset,
     # is_bf16, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # Sk, D, is_bf16 -> the keys held resident (0: the tiled loop)
+    "flash_attention_resident_keys": [_I] * 3,
     # a, b, out, N, M, stream
     "box_iou_launch": [_P] * 3 + [_I] * 2 + [_P],
     # cur, prev, delta_q, changed, H, W, C, tile_h, tile_w, tau, scale,

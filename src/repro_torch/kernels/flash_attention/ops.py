@@ -51,6 +51,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     return o.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def resident_keys(sk: int, d: int, dtype=torch.float32) -> int:
+    """The padded key count the kernel's launcher holds in shared memory
+    whole for Sk keys at head dim D (its resident path), or 0 (the tiled
+    loop): which path a call of that shape takes on the card."""
+    return _lib.library().flash_attention_resident_keys(
+        sk, d, int(dtype == torch.bfloat16))
+
+
 def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                     scale: float | None = None) -> torch.Tensor:
     """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]. CPU

@@ -29,6 +29,7 @@ from repro_torch.configs import DetectorConfig
 from repro_torch.models import swin, vit
 from repro_torch.models.layers import (
     Params,
+    card_kernel_operands,
     conv2d,
     conv_init,
     gelu,
@@ -37,6 +38,7 @@ from repro_torch.models.layers import (
     layernorm_init,
 )
 from repro_torch.obs.trace import span
+from repro_torch.train.optim import tree_leaves
 
 
 class Detections(NamedTuple):
@@ -247,9 +249,21 @@ def detector_neck_feats_tokens(params: Params, cfg: DetectorConfig,
             c3, c4 = _swin_maps(bb["swin"], cfg, tokens)
         return swin_neck_features(bb, c3, c4)
     with span("madeye/backbone"):
-        feats = vit.vit_features_tokens(bb["vit"], tokens,
-                                        n_heads=cfg.n_heads)
+        feats = vit.vit_features_tokens(
+            bb["vit"], tokens, n_heads=cfg.n_heads,
+            impl=vit_attention_impl(tokens, bb["vit"]))
     return neck_features(bb, feats)
+
+
+def vit_attention_impl(tokens: torch.Tensor, vit_params: Params) -> str:
+    """The ViT backbone's attention: "flash", one launch a layer of the
+    hand-written kernel, where the tokens and every ViT weight are plain
+    float32 CUDA tensors holding values and nothing needs a gradient
+    (layers.card_kernel_operands); else "xla": the CPU, training, vmap,
+    meshes, meta and fake tensors, none of which the kernel (it has no
+    backward) may see."""
+    ok = card_kernel_operands(tokens, *tree_leaves(vit_params))
+    return "flash" if ok else "xla"
 
 
 def detector_raw_tokens(params: Params, cfg: DetectorConfig,

@@ -239,25 +239,30 @@ DENSE_MIN_ROWS = 1024
 DENSE_MIN_MACS = 2 ** 30
 
 
-def _dense_engages(x: torch.Tensor, w: torch.Tensor,
-                   b: torch.Tensor | None) -> bool:
-    """The product runs in the dense kernel (kernels/dense) when every
-    operand is a plain float32 CUDA tensor holding values (no DTensor,
-    no functorch wrapper, no FakeTensorMode), the result needs no
-    gradient, and x has at least DENSE_MIN_ROWS rows and the product
-    DENSE_MIN_MACS multiply-adds (an LM's decode step, a few rows, keeps
-    torch's product)."""
-    ts = (x, w) if b is None else (x, w, b)
+def card_kernel_operands(*ts: torch.Tensor) -> bool:
+    """True where a forward-only hand-written kernel may take the
+    tensors: each is a plain float32 CUDA tensor holding values (no
+    DTensor, no functorch wrapper, not meta, no FakeTensorMode) and none
+    needs a gradient (the kernels have no backward)."""
     if any(t.dtype != torch.float32 or t.device.type != "cuda"
            or isinstance(t, DTensor) or is_functorch_wrapped_tensor(t)
            for t in ts):
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return False
+    return not shape_only()
+
+
+def _dense_engages(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor | None) -> bool:
+    """The product runs in the dense kernel (kernels/dense) when every
+    operand is one it may take (card_kernel_operands) and x has at least
+    DENSE_MIN_ROWS rows and the product DENSE_MIN_MACS multiply-adds (an
+    LM's decode step, a few rows, keeps torch's product)."""
     rows = x.shape[:-1].numel()
     if rows < DENSE_MIN_ROWS or rows * w.numel() < DENSE_MIN_MACS:
         return False
-    return not shape_only()
+    return card_kernel_operands(*((x, w) if b is None else (x, w, b)))
 
 
 def linear(p: Params, x: torch.Tensor,

@@ -22,8 +22,9 @@ At the main path's full width (madeye-approx, 64 cameras, 8 steps,
 shortlist_k=18, frozen and with head-only distillation; full-network
 distillation at 3 steps) run_fleet launches each main-path kernel once
 a step, threefry once for each of the 19 draws a step, dense once for
-each of the ViT's 36 linears (none in full mode, whose forward runs
-under vmap), and nothing else;
+each of the ViT's 36 linears and flash_attention once for each of its 6
+layers (neither in full mode, whose forward runs under vmap), and
+nothing else;
 and every oracle_pass, shape_search and budget_walk call of the episode
 gives what its plain version gives on the same inputs.
 `tools/kernel_table.py` times the kernels at the cells' shapes.
@@ -59,6 +60,7 @@ from repro_torch.kernels.crop_patchify.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+    resident_keys,
 )
 from repro_torch.kernels.frame_delta.ops import (  # noqa: E402
     frame_delta,
@@ -83,6 +85,8 @@ from repro_torch.kernels.shape_search.ops import (  # noqa: E402
     shape_search_plain,
 )
 from repro_torch.learn.spec import DistillSpec  # noqa: E402
+from repro_torch.models import detector as det  # noqa: E402
+from repro_torch.models.layers import full_float32  # noqa: E402
 from repro_torch.scene import observe as observe_module  # noqa: E402
 from repro_torch.scene.render import (  # noqa: E402
     object_colors,
@@ -509,6 +513,95 @@ def test_flash_attention_rejects_bad_input(cuda):
                         q.transpose(1, 2))
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+# (B, Sq, Sk, Hq, Hkv, D, causal, q_offset, dtype, keys held resident):
+# the resident path at Sk 1, 63, 197 and 256 and the tiled loop just past
+# it (0; past 32 head dims up to 128 keys are held), in both types;
+# causal with q_offset (rows with no key among them), GQA, queries past
+# one item's four tiles, more items than SMs; the kernel table's GQA and
+# bf16 rows
+RESIDENT_CASES = [
+    (3, 1, 1, 4, 4, 32, False, 0, F32, 64),
+    (3, 63, 63, 4, 4, 32, False, 0, F32, 64),
+    (3, 197, 197, 6, 6, 32, False, 0, F32, 200),
+    (2, 256, 256, 4, 4, 32, False, 0, F32, 256),
+    (2, 257, 257, 4, 4, 32, False, 0, F32, 0),
+    (2, 128, 128, 4, 4, 64, False, 0, F32, 128),
+    (2, 129, 129, 4, 4, 64, False, 0, F32, 0),
+    (3, 1, 1, 4, 4, 64, False, 0, BF16, 64),
+    (3, 63, 63, 4, 4, 64, False, 0, BF16, 64),
+    (3, 197, 197, 6, 6, 32, False, 0, BF16, 208),
+    (2, 256, 256, 4, 4, 32, False, 0, BF16, 256),
+    (2, 257, 257, 4, 4, 32, False, 0, BF16, 0),
+    (2, 128, 128, 4, 4, 64, False, 0, BF16, 128),
+    (2, 129, 129, 4, 4, 64, False, 0, BF16, 0),
+    (2, 197, 197, 4, 2, 32, True, 0, F32, 200),
+    (2, 300, 120, 4, 4, 32, True, -180, F32, 128),
+    (2, 63, 63, 4, 1, 32, True, 5, BF16, 64),
+    (300, 197, 197, 2, 1, 24, False, 0, F32, 200),
+    (4, 100, 164, 8, 2, 64, True, 64, F32, 0),
+    (64, 256, 256, 8, 8, 64, False, 0, BF16, 0),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", RESIDENT_CASES,
+                         ids=[str(c[:9]) for c in RESIDENT_CASES])
+def test_flash_attention_resident_path_on_card(cuda, case):
+    """The launcher holds K and V resident exactly where the case says,
+    and both paths match the plain version (3e-5 float32, 2e-2 bf16)."""
+    b, sq, sk, hq, hkv, d, causal, q_offset, dtype, keys = case
+    assert resident_keys(sk, d, dtype) == keys
+    gen = torch.Generator().manual_seed(sq * 7 + sk + d)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    _lib.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert _lib.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_detector_attention_on_flash_at_full_width(cuda, monkeypatch):
+    """madeye-approx's detector on the tokens of a run_fleet step's 1,152
+    shortlisted crops (64 cameras x 18, the fused path), without
+    gradients as the fleet runs it: attention takes the flash kernel,
+    one launch a layer, and the post-neck features and the top-32 scores
+    are within 1e-4 of the same forward with impl="xla". Both in full
+    float32, as the fleet runs them (layers.full_float32: cuDNN's TF32
+    convolutions in the neck would round the two apart by ~1e-3)."""
+    seen, forward = [], runner_module.detector_forward_tokens
+
+    def kept(dp, cfg, tokens):
+        seen.append((dp, cfg, tokens.clone()))
+        return forward(dp, cfg, tokens)
+
+    monkeypatch.setattr(runner_module, "detector_forward_tokens", kept)
+    run_fleet(FleetRunSpec(provider="detector", n_cameras=64, n_steps=1,
+                           shortlist_k=18, provider_kwargs={
+                               "det_cfg": get_config("madeye-approx")}))
+    params, cfg, tokens = seen[-1]
+    assert tokens.shape[0] == 64 * 18
+    with torch.no_grad(), full_float32():
+        assert det.vit_attention_impl(tokens, params["backbone"]["vit"]) \
+            == "flash"
+        _lib.reset_launch_counts()
+        feats = det.detector_neck_feats_tokens(params, cfg, tokens)
+        scores = det.detector_forward_tokens(params, cfg, tokens).scores
+        assert _lib.launch_counts()["flash_attention"] == 2 * cfg.n_layers
+        monkeypatch.setattr(det, "vit_attention_impl", lambda *a: "xla")
+        _lib.reset_launch_counts()
+        want_feats = det.detector_neck_feats_tokens(params, cfg, tokens)
+        want_scores = det.detector_forward_tokens(params, cfg,
+                                                  tokens).scores
+        assert _lib.launch_counts()["flash_attention"] == 0
+    torch.testing.assert_close(feats, want_feats, rtol=0, atol=1e-4)
+    torch.testing.assert_close(scores, want_scores, rtol=0, atol=1e-4)
+
+
 # widths that are and are not multiples of 4 (16-byte rows or scalar
 # stores), ragged column blocks and row slabs
 BOX_IOU_CASES = [(1, 1), (37, 13), (300, 517), (3, 4), (4, 3), (1, 4095),
@@ -681,6 +774,7 @@ MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
 # (fold_in x 2, normal)
 STEP_DRAWS = 16 + 3
 VIT_LINEARS = 36            # q, k, v, o, up, down in each of 6 layers
+VIT_LAYERS = 6              # one flash_attention launch each
 
 
 def _record(monkeypatch, module, name, calls):
@@ -697,18 +791,20 @@ def _record(monkeypatch, module, name, calls):
     monkeypatch.setattr(module, name, recorded)
 
 
-# (distill, steps, dense launches a step): head-only distillation runs
-# the shared backbone once over the shortlist, as the frozen path; full
-# mode runs each camera's network under vmap, where linear keeps torch's
-# product (its depth cut to 3 steps for the card's memory)
-MAIN_PATH_CASES = [(None, 8, VIT_LINEARS), (DistillSpec(), 8, VIT_LINEARS),
-                   (DistillSpec(head_only=False), 3, 0)]
+# (distill, steps, dense and flash_attention launches a step): head-only
+# distillation runs the shared backbone once over the shortlist, as the
+# frozen path; full mode runs each camera's network under vmap, where
+# linear keeps torch's product and attention its plain path (its depth
+# cut to 3 steps for the card's memory)
+MAIN_PATH_CASES = [(None, 8, VIT_LINEARS, VIT_LAYERS),
+                   (DistillSpec(), 8, VIT_LINEARS, VIT_LAYERS),
+                   (DistillSpec(head_only=False), 3, 0, 0)]
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("distill,n_steps,dense", MAIN_PATH_CASES,
+@pytest.mark.parametrize("distill,n_steps,dense,flash", MAIN_PATH_CASES,
                          ids=["frozen", "distill", "distill-full"])
-def test_main_path_at_full_width(cuda, distill, n_steps, dense,
+def test_main_path_at_full_width(cuda, distill, n_steps, dense, flash,
                                  monkeypatch):
     n_cameras = 64
     steps = n_steps + 1                         # and the warm-up step
@@ -745,7 +841,8 @@ def test_main_path_at_full_width(cuda, distill, n_steps, dense,
     assert counts.pop("threefry") == draws[0]
     assert per_step == [STEP_DRAWS] * steps
     assert counts == {k: steps for k in MAIN_PATH_KERNELS} | (
-        {"dense": dense * steps} if dense else {})
+        {"dense": dense * steps, "flash_attention": flash * steps}
+        if dense else {})
     chosen = torch.tensor(result.chosen)
     acc = torch.tensor(result.acc_per_step)
     assert chosen.shape == (n_steps, n_cameras)

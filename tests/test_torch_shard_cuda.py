@@ -14,10 +14,11 @@ At full width (weights from seeded CUDA generators):
 
 - the main path's cell (madeye-approx, 64 cameras, 8 steps,
   shortlist_k=18) with ShardSpec("debug") on a one-rank NCCL mesh
-  launches the four main-path kernels once a step and nothing else
-  (threefry and dense aside) and is bit-equal to the unsharded run;
-  split over two spawned processes sharing the card in a gloo group (32
-  cameras each), each rank launches them once a step, the gathered
+  launches the four main-path kernels once a step, flash_attention once
+  a ViT layer, and nothing else (threefry and dense aside) and is
+  bit-equal to the unsharded run; split over two spawned processes
+  sharing the card in a gloo group (32 cameras each), each rank
+  launches them as often, the gathered
   decisions equal the unsharded run's, pred_acc and accuracy within
   1e-5 (each rank's detector forward runs over half the crops, where
   cuBLAS may sum in another order);
@@ -153,6 +154,11 @@ MAIN_PATH_KERNELS = ("shape_search", "budget_walk", "oracle_pass",
 FULL = FleetRunSpec(provider="detector", n_cameras=64, n_steps=8,
                     shortlist_k=18,
                     provider_kwargs={"det_cfg": get_config("madeye-approx")})
+# each step's (and the warm-up's) launches: the main path's kernels, and
+# flash_attention once for each of the ViT's layers
+FULL_LAUNCHES = {k: FULL.n_steps + 1 for k in MAIN_PATH_KERNELS} | {
+    "flash_attention": (FULL.n_steps + 1)
+    * get_config("madeye-approx").n_layers}
 
 
 def _counted(fn):
@@ -172,7 +178,7 @@ def test_full_width_fleet_one_rank_matches_unsharded(cuda):
     whole = run_fleet(FULL)
     res, counts = _counted(lambda: run_fleet(dataclasses.replace(
         FULL, shard={"kind": "debug"})))
-    assert counts == {k: FULL.n_steps + 1 for k in MAIN_PATH_KERNELS}
+    assert counts == FULL_LAUNCHES
     for k in ("chosen", "frames_sent", "accuracy", "acc_per_step"):
         assert getattr(res, k) == getattr(whole, k), k
     assert torch.equal(res.out.pred_acc, whole.out.pred_acc)
@@ -184,8 +190,7 @@ def test_full_width_fleet_two_processes_share_the_card(cuda, tmp_path):
     pred = whole.out.pred_acc.cpu().numpy()
     for r in torch_dist.spawn(torch_dist.card_fleet_rank, 2, tmp_path,
                               FULL, 2).join():
-        assert r["launches"] == {k: FULL.n_steps + 1
-                                 for k in MAIN_PATH_KERNELS}
+        assert r["launches"] == FULL_LAUNCHES
         assert r["chosen"] == whole.chosen
         assert r["frames_sent"] == whole.frames_sent
         assert float(np.abs(r["pred_acc"] - pred).max()) <= 1e-5

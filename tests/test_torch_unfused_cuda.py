@@ -164,9 +164,9 @@ def test_detector_controller_at_full_width(cuda, monkeypatch):
     cameras, 3 steps, shortlist 18; no warm-up step) launches the
     search kernels, the oracle pass and crop_patchify once a step, dense
     once for each large enough linear of the step's forward (8 x 18
-    crops: the MLP's, not attention's d x d), threefry once for each
-    draw on the card, and nothing else; and decides as run_fleet on the
-    same spec."""
+    crops: the MLP's, not attention's d x d), flash_attention once for
+    each of the ViT's layers, threefry once for each draw on the card,
+    and nothing else; and decides as run_fleet on the same spec."""
     cfg = get_config("madeye-approx")
     n_cam, n_steps, k = 8, 3, 18
     draws = count_card_draws(monkeypatch)
@@ -180,7 +180,8 @@ def test_detector_controller_at_full_width(cuda, monkeypatch):
     assert counts.pop("threefry") == draws[0]
     assert counts == {name: n_steps for name in SEARCH_AND_ORACLE} | {
         "crop_patchify": n_steps,
-        "dense": n_steps * vit_dense_launches(cfg, n_cam * k)}
+        "dense": n_steps * vit_dense_launches(cfg, n_cam * k),
+        "flash_attention": n_steps * cfg.n_layers}
     res = run_fleet(FleetRunSpec(provider="detector", n_cameras=n_cam,
                                  n_steps=n_steps, shortlist_k=k,
                                  provider_kwargs={"det_cfg": cfg}))
@@ -395,8 +396,8 @@ def test_anchor_unfused_against_fused_at_full_width(cuda, monkeypatch):
     each run launches the search kernels and the oracle pass once a
     step, the fused one crop_patchify too, the unfused one never, dense
     once for each large enough linear of each detector forward (the
-    unfused one a forward a slab), threefry once a draw, nothing else;
-    every
+    unfused one a forward a slab), flash_attention once for each ViT
+    layer of each forward, threefry once a draw, nothing else; every
     cell's raw score and class margin of the two within NEAR_BAND;
     windows holding a detection within NEAR_BAND of a score threshold
     at most NEAR_SHARE of all; per window the two runs' tables agree
@@ -423,10 +424,12 @@ def test_anchor_unfused_against_fused_at_full_width(cuda, monkeypatch):
     p = prepare_fleet_run(fused).provider
     assert ucounts == {k: steps for k in SEARCH_AND_ORACLE} | {
         "dense": steps * (c // p.chunk)
-        * vit_dense_launches(cfg, n_cam * p.chunk)}
+        * vit_dense_launches(cfg, n_cam * p.chunk),
+        "flash_attention": steps * (c // p.chunk) * cfg.n_layers}
     assert fcounts == {k: steps for k in SEARCH_AND_ORACLE} | {
         "crop_patchify": steps,
-        "dense": steps * vit_dense_launches(cfg, n_cam * c)}
+        "dense": steps * vit_dense_launches(cfg, n_cam * c),
+        "flash_attention": steps * cfg.n_layers}
 
     thresholds = tuple(float(x) for x in p.thresh) + (float(p.geo_thresh),)
     n_diff = n_near_t = 0

@@ -13,7 +13,9 @@ kernels whose device time is near a Python call's dispatch time;
 `plain_ms`; `library_ms` where one PyTorch call computes the same
 function; and the bound, the larger of the bytes read and written once
 over the HBM rate and the operations over the rate of the units that run
-them. The last line is one JSON object with every row under "kernels".
+them; for flash_attention, the path its launcher took (the keys held
+resident, or the tiled loop). The last line is one JSON object with
+every row under "kernels".
 It exits non-zero if a row is out of its tolerance. Launch counts on the
 program's paths are the card tests' (`tests/test_torch_*_cuda.py`).
 
@@ -67,6 +69,7 @@ from repro_torch.kernels.dense.ops import dense, dense_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+    resident_keys,
 )
 from repro_torch.kernels.frame_delta.ops import (  # noqa: E402
     frame_delta_plain,
@@ -405,10 +408,11 @@ def delta_frames(n: int, dev, seed: int):
 def row(name: str, label: str, shape: str, tol: str, err: float,
         n_bytes: float, n_ops: float, *, peak=PEAK_FP32_PER_S,
         split: bool = False, run, plain, iters: int, plain_iters: int,
-        graph: bool = False, library=None) -> dict:
+        graph: bool = False, library=None, path: str | None = None) -> dict:
     """One row of the table: the kernel's call `run` and its plain
     version `plain` timed, the bound from bytes and operations (a
-    split-TF32 product's at three TF32 operations each)."""
+    split-TF32 product's at three TF32 operations each); `path`, where a
+    kernel has more than one, the one the launcher took."""
     lim = (split_tf32_bound(n_bytes, n_ops) if split
            else bound(n_bytes, n_ops, peak))
     r = {"row": label, "name": name, "shape": shape, "tol": tol,
@@ -420,11 +424,14 @@ def row(name: str, label: str, shape: str, tol: str, err: float,
         r["graph_ms"] = graph_ms(run, iters)
     cu = "shape_search" if name == "budget_walk" else name
     r.update(source=f"src/repro_torch/csrc/{cu}.cu", replaces=REPLACES[name])
+    if path is not None:
+        r["path"] = path
     graph_s = f" graph_ms={r['graph_ms']:.6f}" if graph else ""
+    path_s = f" path={path}" if path is not None else ""
     lib_s = ("null" if r["library_ms"] is None
              else f"{r['library_ms']:.6f}")
     print(f"kernel {label} {name} [{shape}]: max_abs_err={err:.3e} (tol "
-          f"{tol}) ms={r['ms']:.6f}{graph_s} plain_ms={r['plain_ms']:.6f} "
+          f"{tol}) ms={r['ms']:.6f}{graph_s}{path_s} plain_ms={r['plain_ms']:.6f} "
           f"bound_ms={lim[0]:.6f} ({lim[1]}, {lim[2]}) library_ms={lib_s}",
           flush=True)
     return r
@@ -602,12 +609,14 @@ def flash_row(dev, label: str, b, sq, sk, hq, hkv, d, *, causal=False,
                                                   is_causal=causal)
     es = q.element_size()
     n_ops = 4.0 * b * hq * attn_pairs(sq, sk, causal, q_offset) * d
+    keys = resident_keys(sk, d, dtype)
     return row("flash_attention", label, shape, f"{tol:g}", err,
                es * (2 * b * sq * hq * d + 2 * b * sk * hkv * d), n_ops,
                peak=PEAK_BF16_PER_S, split=dtype == torch.float32,
                run=lambda: flash_attention(q, k, v, **kw),
                plain=lambda: flash_attention_plain(q, k, v, **kw),
-               iters=iters, plain_iters=plain_iters, library=lib)
+               iters=iters, plain_iters=plain_iters, library=lib,
+               path=f"resident {keys} keys" if keys else "tiled")
 
 
 def box_iou_row(label: str, a, b, what: str) -> dict:
@@ -772,15 +781,18 @@ def table(dev) -> list:
     del main, big, cp_args
     torch.cuda.empty_cache()
 
-    # the ViT's layer (64 cameras x 18 crops, 197 tokens, 6 heads of 32);
-    # stablelm-3b's causal width, GQA with q_offset, bf16; heads past 128
-    # dims (deepseek-v3's MLA at 192, and 256); the LMs' and the ViTs'
-    # attention at their serving shapes
+    # the ViT's layer (64 cameras x 18 crops, 197 tokens, 6 heads of 32,
+    # and f256's 256 cameras); stablelm-3b's causal width, GQA with
+    # q_offset, bf16; heads past 128 dims (deepseek-v3's MLA at 192, and
+    # 256); the LMs' and the ViTs' attention at their serving shapes
     bf16 = torch.bfloat16
     rows += [
         flash_row(dev, "4", N_CAMERAS * SHORTLIST_K, 197, 197, cfg.n_heads,
                   cfg.n_heads, cfg.d_model // cfg.n_heads, iters=20,
                   plain_iters=5, library=True),
+        flash_row(dev, "4", 4 * N_CAMERAS * SHORTLIST_K, 197, 197,
+                  cfg.n_heads, cfg.n_heads, cfg.d_model // cfg.n_heads,
+                  iters=10, plain_iters=2),
         flash_row(dev, "4", 2, 4096, 4096, 32, 32, 80, causal=True,
                   iters=5, plain_iters=2, library=True),
         flash_row(dev, "4", 4, 100, 164, 8, 2, 64, causal=True,
